@@ -1,0 +1,99 @@
+"""Interval algebra for interval-aware ANN search (paper §2.1, §3).
+
+Every object carries an interval ``I_o = [l, r]``; every query carries
+``q.I = [a_l, a_r]``.  The four query semantics reduce to two predicates:
+
+* IFANN:  ``I_o ⊆ q.I``   (interval-filtered)
+* ISANN:  ``q.I ⊆ I_o``   (interval-stabbing)
+* RFANN:  IFANN with point object intervals ``I_o = [a, a]``
+* RSANN:  ISANN with a point query interval ``q.I = [t, t]``
+
+All functions broadcast: intervals are tensors whose last axis has size 2
+(``[..., 0] = l``, ``[..., 1] = r``).
+"""
+from __future__ import annotations
+
+import enum
+
+import torch
+
+# Semantic bit layout of the per-edge status byte (paper Def. 3.1 bitmask).
+FLAG_IF = 1  # bit 0: edge active for interval-filtered (IF) semantics
+FLAG_IS = 2  # bit 1: edge active for interval-stabbing (IS) semantics
+FLAG_BOTH = FLAG_IF | FLAG_IS
+
+
+class Semantics(enum.Enum):
+    """Query semantics; RF/RS are degenerate IF/IS (paper §2.1)."""
+
+    IF = "IF"
+    IS = "IS"
+    RF = "RF"  # scalar-attribute filtering == IF with point object intervals
+    RS = "RS"  # stabbing == IS with point query interval
+
+    @property
+    def flag(self) -> int:
+        return FLAG_IF if self in (Semantics.IF, Semantics.RF) else FLAG_IS
+
+
+def hull(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Interval hull ``a ∪ b = [min(l_a, l_b), max(r_a, r_b)]``."""
+    lo = torch.minimum(a[..., 0], b[..., 0])
+    hi = torch.maximum(a[..., 1], b[..., 1])
+    return torch.stack([lo, hi], dim=-1)
+
+
+def intersection(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Interval intersection (may be empty: ``l > r``)."""
+    lo = torch.maximum(a[..., 0], b[..., 0])
+    hi = torch.minimum(a[..., 1], b[..., 1])
+    return torch.stack([lo, hi], dim=-1)
+
+
+def is_empty(a: torch.Tensor) -> torch.Tensor:
+    return a[..., 0] > a[..., 1]
+
+
+def contains(outer: torch.Tensor, inner: torch.Tensor) -> torch.Tensor:
+    """``inner ⊆ outer``."""
+    return (outer[..., 0] <= inner[..., 0]) & (inner[..., 1] <= outer[..., 1])
+
+
+def predicate(sem: Semantics, obj: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
+    """Query validity predicate; ``obj`` broadcasts against ``query``."""
+    if sem in (Semantics.IF, Semantics.RF):
+        return contains(query, obj)
+    return contains(obj, query)
+
+
+def as_sem_flags(sem, batch_size: int, device=None) -> torch.Tensor:
+    """Normalise a semantics spec to a ``(batch_size,)`` int32 flag tensor.
+
+    Accepts one :class:`Semantics` (broadcast), a sequence of
+    ``Semantics``/flag ints (one per query), or a flag tensor or array.
+    Every flag must be ``FLAG_IF`` or ``FLAG_IS``: flag 0 would fail every
+    edge gate, flag 3 would traverse both semantics."""
+    if isinstance(sem, Semantics):
+        return torch.full((batch_size,), sem.flag, dtype=torch.int32, device=device)
+    if isinstance(sem, (list, tuple)):
+        sem = [s.flag if isinstance(s, Semantics) else int(s) for s in sem]
+    arr = torch.as_tensor(sem, device=device).to(torch.int32)
+    bad = sorted(set(torch.unique(arr).tolist()) - {FLAG_IF, FLAG_IS})
+    if bad:
+        raise ValueError(
+            f"sem flags must be FLAG_IF ({FLAG_IF}) or FLAG_IS ({FLAG_IS}), got {bad}")
+    if arr.ndim != 1 or arr.shape[0] != batch_size:
+        raise ValueError(f"sem flags shape {tuple(arr.shape)} != ({batch_size},)")
+    return arr
+
+
+def is_filter_flag(flags: torch.Tensor) -> torch.Tensor:
+    """True where the flag selects the containment direction of IF/RF."""
+    return (flags & FLAG_IF) > 0
+
+
+def predicate_by_flag(flags: torch.Tensor, obj: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
+    """Flag-driven :func:`predicate`: ``flags`` broadcasts against the
+    leading dims of ``obj``/``query``.  Both directions are evaluated and
+    selected per element, so a uniform-flag batch equals :func:`predicate`."""
+    return torch.where(is_filter_flag(flags), contains(query, obj), contains(obj, query))

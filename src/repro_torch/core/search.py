@@ -1,0 +1,262 @@
+"""Interval-aware beam search over the unified graph (paper Alg. 4).
+
+The per-query priority queues of the paper become a fixed-width ``(B, E)``
+beam that the whole batch advances together; the visited set is an exact
+per-query bitmap updated with one deduplicated scatter-add per step.  Each
+step expands the ``W`` best unexpanded frontier nodes of every query,
+scores all ``W·M`` of their neighbors through the expand-score kernel (no
+``(B, C, d)`` candidate tensor), dedups candidate ids with the sort-based
+``dedup_first`` (no ``(B, C, C)`` tensor), and folds them into the sorted
+beam with the bitonic partial-merge kernel.
+
+Query semantics are runtime state: every query carries an int32 flag
+(``FLAG_IF`` for IF/RF, ``FLAG_IS`` for IS/RS), so one batch can mix all
+four semantics.  Every per-row quantity is computed row-independently, so
+each row's answer is bitwise independent of the rest of the batch: a mixed
+batch returns exactly the per-semantics answers.
+
+Only the static index (no tombstones, no rerank plane) is ported so far;
+the reference's one-node-per-step ``legacy`` loop is not.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import intervals as iv
+from repro_torch.core.candidates import merge_topk
+from repro_torch.core.entry import get_entry_batch_flags
+from repro_torch.kernels import ops
+from repro_torch.kernels.beam_merge import PAD_PAYLOAD, next_pow2
+from repro_torch.kernels.expand_score import dedup_first
+from repro_torch.kernels.util import resolve_backend
+
+# 1 << b as int32 words: bit 31 is negative in two's complement, which is
+# harmless because adding distinct bits to a word equals or-ing them.
+_BITS = (np.uint32(1) << np.arange(32, dtype=np.uint32)).view(np.int32)
+
+
+def bit_table(device) -> torch.Tensor:
+    """The 32 one-bit int32 words, on ``device``."""
+    return torch.as_tensor(_BITS, device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchResult:
+    ids: torch.Tensor    # (B, k) int32 node ids, ascending distance, -1 pad
+    dist: torch.Tensor   # (B, k) f32 squared distances (+inf pad)
+    steps: torch.Tensor  # (B,) int32 expansion count
+    # Iterations of the batch-synchronous loop (None where not applicable):
+    # the batch's latency is iterations × per-step latency.
+    iters: int | None = None
+
+
+def _bitmap_test(bitmap: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Per row: is bit ``ids[b, c]`` set in ``bitmap[b]``?  Words are int32
+    with the ``id >> 5``, ``id & 31`` layout."""
+    ids = ids.clamp(min=0)
+    words = torch.gather(bitmap, 1, (ids >> 5).long())
+    return ((words >> (ids & 31)) & 1).bool()
+
+
+def _bitmap_set(bitmap: torch.Tensor, ids: torch.Tensor, fresh: torch.Tensor,
+                bits: torch.Tensor) -> None:
+    """OR the bits of ``ids[fresh]`` into ``bitmap`` (in place) with one
+    scatter-add.  ``fresh`` holds only ids whose bit is clear and no id
+    twice in a row, so add == or; the other slots add 0 to word 0.
+    ``bits`` is :func:`bit_table` on the bitmap's device."""
+    bits = bits[(ids & 31).long()]
+    word = torch.where(fresh, ids >> 5, 0).long()
+    bitmap.scatter_add_(1, word, torch.where(fresh, bits, 0))
+
+
+def _make_fused_step(plane, intervals, nbrs, status, q32, q_int, sem_flags, *, W: int, backend: str):
+    """Build ``(step, score, merge)`` for the fused hot loop.
+
+    ``step`` advances ``(beam_d, beam_p, visited, steps)`` by one
+    multi-expansion; ``visited`` is updated in place."""
+    n = plane.data.shape[0]
+    M = nbrs.shape[1]
+    B = q32.shape[0]
+    C = W * M
+    bits = bit_table(q32.device)
+
+    def score(ids_c, valid):
+        """Squared distances of the masked candidate ids (+inf where invalid)."""
+        idx = torch.where(valid, ids_c, -1).to(torch.int32).contiguous()
+        return ops.expand_score_plane(plane, idx, q32, backend=backend)
+
+    def merge(beam_d, beam_p, cand_d, cand_p):
+        return ops.beam_merge(beam_d, beam_p, cand_d.contiguous(), cand_p.contiguous(),
+                              backend=backend)
+
+    def step(beam_d, beam_p, visited, steps):
+        # ExtractMin_W: the W best unexpanded entries, ties to the lower slot.
+        sel_d = torch.where((beam_p & 1) == 0, beam_d, torch.inf)
+        sel_v, sel_idx = torch.sort(sel_d, dim=-1, stable=True)
+        sel_idx = sel_idx[:, :W]
+        sel_ok = torch.isfinite(sel_v[:, :W])
+        u = torch.gather(beam_p >> 1, 1, sel_idx)
+        mark = torch.zeros_like(beam_p).scatter_reduce_(
+            1, sel_idx, sel_ok.to(torch.int32), "amax")
+        beam_p = beam_p | mark
+
+        u_c = u.clamp(0, n - 1).long()
+        nb = torch.where(sel_ok[..., None], nbrs[u_c], -1).reshape(B, C)
+        st = status[u_c].reshape(B, C)
+        present = nb >= 0
+        nb_c = nb.clamp(0, n - 1)
+        seen = _bitmap_test(visited, nb_c) | ~present
+
+        sem_ok = (st.to(torch.int32) & sem_flags[:, None]) > 0
+        pred_ok = iv.predicate_by_flag(sem_flags[:, None], intervals[nb_c.long()],
+                                       q_int[:, None, :])
+        cand_ok = present & ~seen & sem_ok & pred_ok
+        # Mark scored and node-dead candidates, never edge-masked ones; one
+        # id may repeat across the W lists, so only its first eligible
+        # occurrence is scored and marked (the scatter-add stays an OR).
+        valid = dedup_first(nb_c, cand_ok)
+        to_mark = dedup_first(nb_c, present & ~seen & (cand_ok | ~pred_ok))
+        _bitmap_set(visited, nb_c, to_mark, bits)
+
+        cand_d = score(nb_c, valid)
+        cand_p = torch.where(valid, nb_c << 1, PAD_PAYLOAD).to(torch.int32)
+        beam_d, beam_p = merge(beam_d, beam_p, cand_d, cand_p)
+        steps = steps + sel_ok.sum(dim=-1, dtype=torch.int32)
+        return beam_d, beam_p, visited, steps
+
+    return step, score, merge
+
+
+def _beam_search_fused(plane, intervals, nbrs, status, entry_ids, q_v, q_int, sem_flags,
+                       *, ef: int, k: int, max_steps: int, width: int, backend: str) -> SearchResult:
+    """Fused multi-expansion Alg. 4.
+
+    The beam is ``E = next_pow2(ef)`` wide (``+inf``/``PAD_PAYLOAD``
+    padded) and kept ascending under the total order ``(dist, payload)``;
+    each payload packs ``id << 1 | expanded``.  The loop runs while any row
+    has an unexpanded finite entry, one host sync per iteration."""
+    n = plane.data.shape[0]
+    B = q_v.shape[0]
+    dev = q_v.device
+    W = max(min(width, ef), 1)
+    E = next_pow2(ef)
+    nwords = (n + 31) // 32
+
+    q32 = q_v.to(torch.float32).contiguous()
+    step, score, merge = _make_fused_step(plane, intervals, nbrs, status, q32, q_int,
+                                          sem_flags, W=W, backend=backend)
+
+    ent_valid = entry_ids >= 0
+    ent_c = entry_ids.clamp(0, n - 1)
+    ent_d = score(ent_c, ent_valid)
+    ent_p = torch.where(ent_valid, ent_c << 1, PAD_PAYLOAD).to(torch.int32)
+    beam_d = torch.full((B, E), torch.inf, dtype=torch.float32, device=dev)
+    beam_p = torch.full((B, E), PAD_PAYLOAD, dtype=torch.int32, device=dev)
+    beam_d, beam_p = merge(beam_d, beam_p, ent_d, ent_p)
+    visited = torch.zeros((B, nwords), dtype=torch.int32, device=dev)
+    _bitmap_set(visited, ent_c, ent_valid, bit_table(dev))
+
+    iters_cap = (max_steps + W - 1) // W
+    steps = torch.zeros((B,), dtype=torch.int32, device=dev)
+    it = 0
+    while it < iters_cap and bool((((beam_p & 1) == 0) & torch.isfinite(beam_d)).any()):
+        beam_d, beam_p, visited, steps = step(beam_d, beam_p, visited, steps)
+        it += 1
+
+    dist = beam_d[:, :k]                                   # the beam is sorted
+    ids = torch.where(torch.isfinite(dist), beam_p[:, :k] >> 1, -1)
+    return SearchResult(ids, dist, steps, it)
+
+
+def _static_only(store) -> None:
+    if store.alive is not None or store.free is not None:
+        raise NotImplementedError(
+            "tombstoned stores are not ported yet (ROADMAP.md queue 1, item 8 'core/updates.py')")
+    if store.rerank is not None:
+        raise NotImplementedError(
+            "rerank planes are not ported yet (ROADMAP.md queue 1, item 6 'Quantized planes')")
+
+
+def beam_search_flags(store, entry_ids, q_v, q_int, sem_flags, *, ef: int, k: int,
+                      max_steps: int = 0, backend: str | None = None,
+                      width: int = 4) -> SearchResult:
+    """Batched Alg. 4 with runtime per-query semantics over an
+    :class:`~repro_torch.core.store.IndexStore`.
+
+    ``entry_ids`` is ``(B,)`` or ``(B, We)`` int32 (Alg. 5); ``max_steps=0``
+    derives the default cap 8·ef+32 expansions; ``width`` is the frontier
+    width W; ``backend`` picks the kernels (``cuda`` | ``torch``, ``None``
+    = by device)."""
+    _static_only(store)
+    backend = resolve_backend(backend, store.nbrs)
+    steps_cap = max_steps if max_steps > 0 else 8 * ef + 32
+    ent = entry_ids[:, None] if entry_ids.ndim == 1 else entry_ids
+    return _beam_search_fused(
+        store.plane, store.intervals, store.nbrs, store.status, ent.to(torch.int32),
+        q_v, q_int.to(torch.float32), sem_flags.to(torch.int32),
+        ef=ef, k=k, max_steps=steps_cap, width=width, backend=backend,
+    )
+
+
+def beam_search(store, entry_ids, q_v, q_int, *, sem: iv.Semantics, ef: int, k: int,
+                max_steps: int = 0, backend: str | None = None, width: int = 4) -> SearchResult:
+    """Single-semantics Alg. 4: ``sem`` broadcast to a flag tensor."""
+    flags = iv.as_sem_flags(sem, q_v.shape[0], device=q_v.device)
+    return beam_search_flags(store, entry_ids, q_v, q_int, flags, ef=ef, k=k,
+                             max_steps=max_steps, backend=backend, width=width)
+
+
+def search_mixed(store, q_v, q_int, sem_flags, *, ef: int, k: int, max_steps: int = 0,
+                 backend: str | None = None, width: int = 4) -> SearchResult:
+    """Entry acquisition (Alg. 5) + beam search (Alg. 4) for a batch whose
+    queries each carry their own semantics.  ``sem_flags`` takes one
+    :class:`Semantics`, a per-query sequence, or a ``(B,)`` flag tensor."""
+    if store.entry is None:
+        raise ValueError(
+            "store has no entry structure; build one (make_store/"
+            "build_entry_index) or pass entry ids to beam_search_flags")
+    flags = iv.as_sem_flags(sem_flags, q_v.shape[0], device=q_v.device)
+    entry_ids = get_entry_batch_flags(store.entry, q_int, flags, width=width)
+    return beam_search_flags(store, entry_ids, q_v, q_int, flags, ef=ef, k=k,
+                             max_steps=max_steps, backend=backend, width=width)
+
+
+def search(store, q_v, q_int, *, sem: iv.Semantics, ef: int, k: int, max_steps: int = 0,
+           backend: str | None = None, width: int = 4) -> SearchResult:
+    """Entry acquisition (Alg. 5) + interval-aware beam search (Alg. 4)."""
+    return search_mixed(store, q_v, q_int, sem, ef=ef, k=k, max_steps=max_steps,
+                        backend=backend, width=width)
+
+
+# ----------------------------------------------------------------- exact
+def brute_force(x, intervals, q_v, q_int, *, sem: iv.Semantics, k: int,
+                block: int = 8192) -> SearchResult:
+    """Exact predicate-filtered top-k (the ground truth): one matmul-identity
+    ``(nq, block)`` distance tile per corpus block, the predicate mask, the
+    block's k smallest, folded into the running top-k."""
+    nq = q_v.shape[0]
+    n = x.shape[0]
+    dev = x.device
+    q32 = q_v.to(torch.float32)
+    qn = (q32 * q32).sum(-1)
+    is_filter = sem in (iv.Semantics.IF, iv.Semantics.RF)
+    ids = torch.full((nq, k), -1, dtype=torch.int32, device=dev)
+    d = torch.full((nq, k), torch.inf, dtype=torch.float32, device=dev)
+    for s in range(0, n, block):
+        xb = x[s : s + block].to(torch.float32)
+        ib = intervals[s : s + block]
+        xn = (xb * xb).sum(-1)
+        db = torch.clamp_min(qn[:, None] + xn[None, :] - 2.0 * (q32 @ xb.T), 0.0)
+        if is_filter:
+            ok = iv.contains(q_int[:, None, :], ib[None, :, :])
+        else:
+            ok = iv.contains(ib[None, :, :], q_int[:, None, :])
+        db = torch.where(ok, db, torch.inf)
+        vals, idx = torch.sort(db, dim=-1, stable=True)
+        take = min(k, xb.shape[0])
+        ids, d = merge_topk(ids, d, (idx[:, :take] + s).to(torch.int32), vals[:, :take], k)
+    ids = torch.where(torch.isfinite(d), ids, -1)
+    return SearchResult(ids, d, torch.zeros((nq,), dtype=torch.int32, device=dev))

@@ -41,6 +41,11 @@ def pytest_configure(config):
         "slow: heaviest property suites; skipped by default, run with "
         "--run-slow (an explicit -m selection also includes them)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the port's kernels have no CPU mode); "
+        "skips without one",
+    )
 
 
 def pytest_collection_modifyitems(config, items):
