@@ -21,14 +21,23 @@ the script exits non-zero without printing a result):
    (``make_queries`` draws their cluster centres apart from the corpus's, as
    the reference does) at ef = 64 and at wider beams, and for queries drawn
    around corpus rows;
-4. path checks: every kernel launched during phase 3; the kernel path equals
-   the plain path bitwise for search and for a 50,000-row build; a mixed
-   batch equals four per-semantics batches; recall tripwires (a broken
-   graph or kernel gives ~0): mean recall@10 ≥ 0.2 over the four semantics
-   on the 50,000-row index, where this synthetic workload still allows it,
-   and ≥ 0.02 on the 1M index (chance is ~1e-5 there); the 50,000-row
-   index's recall beside that of an exact-KNN (``exact_spatial``) build of
-   the same corpus.
+4. path checks: every kernel of the f32 path launched during phase 3; the
+   kernel path equals the plain path bitwise for search and for a
+   50,000-row build; a mixed batch equals four per-semantics batches;
+   recall tripwires (a broken graph or kernel gives ~0): mean recall@10
+   ≥ 0.2 over the four semantics on the 50,000-row index, where this
+   synthetic workload still allows it, and ≥ 0.02 on the 1M index (chance
+   is ~1e-5 there); the 50,000-row index's recall beside that of an
+   exact-KNN (``exact_spatial``) build of the same corpus;
+5. the quantized path at full width: phase 3's 1M index re-encoded with
+   ``UGIndex.with_dtype`` to a bf16 plane (no rerank), an int8 plane and a
+   pq plane (both with the f32 rerank plane), the same graph; for each,
+   bytes, encode (and pq training) time, QPS over the same 10,000 mixed
+   queries, recall@10 against phase 3's exact truth, launches of its
+   kernels (counted from 0 over its warm-up and timed batches); checks on
+   1,000 queries (``backend="cuda"`` equals ``"torch"`` bitwise, the mixed
+   batch equals four per-semantics batches) and a tripwire on the
+   50,000-row index: mean recall@10 ≥ half of the f32 plane's.
 
 The last line is ``{"ok": true, "device": {...}}``.  Nothing here imports
 JAX or the reference package.
@@ -49,11 +58,26 @@ PER_SEM = 1_000                # queries per semantics that recall is scored on
 SEARCH = dict(ef=64, k=10, width=4)
 WIDE_EFS = (128, 256, 1024)    # wider beams over the same queries
 TIMED_BATCHES = 5
+PQ_M = 16                      # pq subspaces at d = 128 (default_pq_m)
+# The kernels each path launches; phase 3 runs the f32 path, phase 5 the rest.
+PATH_KERNELS = {
+    "f32": ("prune_sweep", "expand_score", "beam_merge"),
+    "bf16": ("expand_score_bf16", "beam_merge"),
+    "int8": ("expand_score_q", "expand_score", "beam_merge"),
+    "pq": ("expand_score_pq", "expand_score", "beam_merge"),
+}
+PLANES = (("bf16", False), ("int8", True), ("pq", True))   # (tag, rerank)
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 KERNELS = {
     "expand_score": ("src/repro_torch/kernels/csrc/expand_score.cu",
                      "src/repro/kernels/expand_score.py:63"),
+    "expand_score_bf16": ("src/repro_torch/kernels/csrc/expand_score.cu",
+                          "src/repro/kernels/expand_score.py:63"),
+    "expand_score_q": ("src/repro_torch/kernels/csrc/expand_score_q.cu",
+                       "src/repro/kernels/expand_score.py:110"),
+    "expand_score_pq": ("src/repro_torch/kernels/csrc/expand_score_pq.cu",
+                        "src/repro/kernels/expand_score.py:250"),
     "beam_merge": ("src/repro_torch/kernels/csrc/beam_merge.cu",
                    "src/repro/kernels/beam_merge.py:132"),
     "prune_sweep": ("src/repro_torch/kernels/csrc/prune_sweep.cu",
@@ -161,12 +185,43 @@ def phase2_kernels(dev) -> dict:
     check(bits_equal(got, want), "expand_score kernel != plain version")
     n_valid = int((idx >= 0).sum())
     b_ms, b_by = bound(n_valid * 4 * d + B * C * 8 + B * d * 4, n_valid * 3 * d)
+    shape = dict(n=n, d=d, B=B, C=C, masked=B * C - n_valid)
     rows["expand_score"] = dict(
         ms=cuda_ms(lambda: ops.expand_score(x, idx, q, backend="cuda")),
         plain_ms=cuda_ms(lambda: ops.expand_score(x, idx, q, backend="torch"), reps=5),
         library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=max_abs_err(got, want),
-        shape=dict(n=n, d=d, B=B, C=C, masked=B * C - n_valid))
-    del x, q, idx, got, want
+        shape=shape)
+
+    # the same candidates on the bf16, int8 and pq planes of the same rows
+    from repro_torch.core.store import VectorPlane
+    from repro_torch.kernels.expand_score import pq_lut
+
+    io_bytes = B * C * 8 + B * d * 4                      # ids in, distances out, queries
+    planes = {
+        "expand_score_bf16": (VectorPlane.encode(x, "bf16"), 2 * d, 3 * d),
+        "expand_score_q": (VectorPlane.encode(x, "int8"), d, 5 * d),
+        "expand_score_pq": (VectorPlane(
+            "pq", torch.randint(0, 256, (n, PQ_M), generator=g, device=dev, dtype=torch.uint8),
+            codebooks=torch.randn(PQ_M, 256, d // PQ_M, generator=g, device=dev)), PQ_M, PQ_M),
+    }
+    del x
+    lut = pq_lut(planes["expand_score_pq"][0].codebooks, q)
+    lut_ms = cuda_ms(lambda: pq_lut(planes["expand_score_pq"][0].codebooks, q), reps=5)
+    for name, (plane, row_bytes, row_ops) in planes.items():
+        run = lambda b: ops.expand_score_plane(plane, idx, q, backend=b, lut=lut)
+        got, want = run("cuda"), run("torch")
+        torch.cuda.synchronize()
+        check(bits_equal(got, want), f"{name} kernel != plain version")
+        # pq reads the (B, m, 256) tables in place of the queries
+        extra = B * PQ_M * 256 * 4 - B * d * 4 if plane.tag == "pq" else 0
+        extra += 2 * d * 4 if plane.tag == "int8" else 0       # scale and zero
+        b_ms, b_by = bound(n_valid * row_bytes + io_bytes + extra, n_valid * row_ops)
+        rows[name] = dict(
+            ms=cuda_ms(lambda: run("cuda")), plain_ms=cuda_ms(lambda: run("torch"), reps=5),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=max_abs_err(got, want),
+            shape=dict(shape, m=PQ_M) if plane.tag == "pq" else shape)
+    emit(phase=2, pq_lut_ms=lut_ms, pq_lut_shape=dict(B=B, m=PQ_M, K=256, dsub=d // PQ_M))
+    del planes, lut, q, idx, got, want
 
     # beam_merge: B = 10,000, E = 64, L = 256, with ties, +inf and pads
     B, E, L = 10_000, 64, 256
@@ -342,7 +397,8 @@ def phase3_main_path(dev):
     rows = torch.randint(0, n, (nq,), generator=g, device=dev)
     qv_in = x[rows] + ccfg.cluster_std * torch.randn(nq, 128, generator=g, device=dev)
     res_in = idx.search_mixed(qv_in, qi, sems, **SEARCH)
-    recalls_in = recall_per_semantics(res_in, scored_queries(idx, qv_in, qi, sems))
+    scored_in = scored_queries(idx, qv_in, qi, sems)
+    recalls_in = recall_per_semantics(res_in, scored_in)
     mem = idx.vector_memory_bytes()
     med = statistics.median(seconds)
     emit(phase=3, n=n, d=128, queries=nq, build_seconds=idx.build_seconds,
@@ -356,36 +412,45 @@ def phase3_main_path(dev):
          recall_at_10_wider_beams=by_ef,
          recall_at_10_corpus_queries=recalls_in, iters_corpus_queries=res_in.iters,
          launches=launches)
-    return idx, (qv, qi, sems), recalls, launches
+    return dict(idx=idx, queries=(qv, qi, sems), scored=scored, recalls=recalls,
+                launches=launches, qv_in=qv_in, scored_in=scored_in)
 
 
-def phase4_checks(dev, idx, queries, recalls, launches):
+def search_checks(idx, queries, dev, what: str) -> None:
+    """On the first 1,000 queries: the kernel path equals the plain path
+    bitwise, and the mixed batch equals four per-semantics batches."""
+    import torch
+
+    qv, qi, sems = queries
+    sub = slice(0, 1000)
+    r_cuda = idx.search_mixed(qv[sub], qi[sub], sems[sub], backend="cuda", **SEARCH)
+    r_torch = idx.search_mixed(qv[sub], qi[sub], sems[sub], backend="torch", **SEARCH)
+    check(same_result(r_cuda, r_torch) and r_cuda.iters == r_torch.iters,
+          f"{what} search: backend='cuda' != backend='torch'")
+    for s in set(sems[sub]):
+        sel = [i for i, ss in enumerate(sems[sub]) if ss is s]
+        one = idx.search(qv[sel], qi[sel], sem=s, **SEARCH)
+        check(same_result(subset(r_cuda, torch.tensor(sel, device=dev)), one),
+              f"{what}: mixed batch != per-semantics batch for {s.value}")
+
+
+def phase4_checks(dev, main):
     import torch
 
     from repro_torch.core import UGConfig, UGIndex
     from repro_torch.data import CorpusConfig, make_corpus
 
-    qv, qi, sems = queries
+    launches = main["launches"]
     out = {}
-    # (a) every kernel ran on the main path
-    for name in KERNELS:
+    # (a) every kernel of the f32 path ran on it
+    for name in PATH_KERNELS["f32"]:
         check(launches.get(name, 0) > 0, f"{name} was not launched on the main path")
     out["a_launches"] = launches
 
-    # (b) kernel path == plain path, 1,000 queries
-    sub = slice(0, 1000)
-    r_cuda = idx.search_mixed(qv[sub], qi[sub], sems[sub], backend="cuda", **SEARCH)
-    r_torch = idx.search_mixed(qv[sub], qi[sub], sems[sub], backend="torch", **SEARCH)
-    check(same_result(r_cuda, r_torch) and r_cuda.iters == r_torch.iters,
-          "search: backend='cuda' != backend='torch'")
+    # (b) kernel path == plain path and (c) the mixed batch equals four
+    # per-semantics batches, on 1,000 queries
+    search_checks(main["idx"], main["queries"], dev, "f32")
     out["b_search_bitwise"] = True
-
-    # (c) the mixed batch equals four per-semantics batches
-    for s in set(sems[sub]):
-        sel = [i for i, ss in enumerate(sems[sub]) if ss is s]
-        one = idx.search(qv[sel], qi[sel], sem=s, **SEARCH)
-        check(same_result(subset(r_cuda, torch.tensor(sel, device=dev)), one),
-              f"mixed batch != per-semantics batch for {s.value}")
     out["c_mixed_equals_per_semantics"] = True
 
     # (d) a 50,000-row build: prune_backend cuda == torch
@@ -416,10 +481,82 @@ def phase4_checks(dev, idx, queries, recalls, launches):
     out["e_degree_stats_50k_exact_spatial"] = exact50.degree_stats()
     out["e_mean_recall_50k"] = mean50 = mean(recalls50.values())
     out["e_mean_recall_50k_exact_spatial"] = mean(recalls_exact.values())
-    out["e_mean_recall_main"] = mean_main = mean(recalls.values())
+    out["e_mean_recall_main"] = mean_main = mean(main["recalls"].values())
     check(mean50 >= 0.2, f"mean recall@10 {mean50} < 0.2 at n = {N_CHECK}")
     check(mean_main >= 0.02, f"mean recall@10 {mean_main} < 0.02 on the main path")
     emit(phase=4, **out)
+    return dict(idx=idx50, queries=(qv50, qi50, sems50), scored=scored50, mean=mean50)
+
+
+def phase5_planes(dev, main, check50) -> dict:
+    """The quantized path on phase 3's graph; returns each plane's launches."""
+    import statistics
+
+    import torch
+
+    from repro_torch.core.store import train_pq_codebooks
+    from repro_torch.kernels import ops
+
+    idx = main["idx"]
+    qv, qi, sems = main["queries"]
+    nq = qv.shape[0]
+    path_launches = {}
+    for tag, rerank in PLANES:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx_t = idx.with_dtype(tag, rerank=rerank)
+        torch.cuda.synchronize()
+        encode_seconds = time.perf_counter() - t0
+        extra = {}
+        if tag == "pq":                                   # training alone, once more
+            t0 = time.perf_counter()
+            train_pq_codebooks(idx.x)
+            torch.cuda.synchronize()
+            extra["pq_train_seconds"] = time.perf_counter() - t0
+
+        ops.reset_launches()                              # this plane's path
+        idx_t.search_mixed(qv, qi, sems, **SEARCH)          # warm-up
+        seconds = []
+        for _ in range(TIMED_BATCHES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = idx_t.search_mixed(qv, qi, sems, **SEARCH)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        launches = dict(ops.launches)
+        for name in PATH_KERNELS[tag]:
+            check(launches[name] > 0, f"{name} was not launched on the {tag} path")
+        path_launches[tag] = launches
+
+        recalls = recall_per_semantics(res, main["scored"])
+        res_in = idx_t.search_mixed(main["qv_in"], qi, sems, **SEARCH)
+        recalls_in = recall_per_semantics(res_in, main["scored_in"])
+        search_checks(idx_t, main["queries"], dev, tag)
+
+        idx50 = check50["idx"].with_dtype(tag, rerank=rerank)
+        qv50, qi50, sems50 = check50["queries"]
+        recalls50 = recall_per_semantics(
+            idx50.search_mixed(qv50, qi50, sems50, **SEARCH), check50["scored"])
+        mean50 = mean(recalls50.values())
+        check(mean50 >= 0.5 * check50["mean"],
+              f"{tag}: mean recall@10 {mean50} < half of f32's {check50['mean']} at n = {N_CHECK}")
+
+        mem = idx_t.vector_memory_bytes()
+        med = statistics.median(seconds)
+        emit(phase=5, plane=tag, rerank=rerank, n=idx_t.n, d=idx_t.store.dim,
+             plane_bytes=mem["plane"], rerank_bytes=mem["rerank"],
+             plane_bytes_per_vector=mem["plane_bytes_per_vector"],
+             encode_seconds=encode_seconds, **extra, queries=nq,
+             search_seconds=seconds, qps=nq / med, qps_min=nq / max(seconds),
+             qps_max=nq / min(seconds), iters=res.iters,
+             mean_steps=float(res.steps.float().mean()), recall_at_10=recalls,
+             mean_recall_at_10=mean(recalls.values()),
+             recall_at_10_corpus_queries=recalls_in,
+             recall_at_10_50k=recalls50, mean_recall_at_10_50k=mean50,
+             mean_recall_at_10_50k_f32=check50["mean"], launches=launches,
+             checks=dict(search_bitwise=True, mixed_equals_per_semantics=True))
+        del idx_t, idx50
+    return path_launches
 
 
 def main() -> int:
@@ -436,15 +573,19 @@ def main() -> int:
     dev = torch.device("cuda")
     phase1_build()
     rows = phase2_kernels(dev)
-    idx, queries, recalls, launches = phase3_main_path(dev)
-    phase4_checks(dev, idx, queries, recalls, launches)
+    main_path = phase3_main_path(dev)
+    check50 = phase4_checks(dev, main_path)
+    path_launches = phase5_planes(dev, main_path, check50)
+    path_launches["f32"] = main_path["launches"]
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rows[name]
+        # each kernel's launches on its own path (phase 3 or phase 5)
+        path = next(p for p in ("f32", "bf16", "int8", "pq") if name in PATH_KERNELS[p])
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], bitwise=True, max_abs_err=r["max_abs_err"],
+            launches=path_launches[path][name], bitwise=True, max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
     emit(seconds=time.perf_counter() - t_start, card=smi)

@@ -4,9 +4,16 @@ One physical graph with a per-edge semantic bitmask answers IFANN, ISANN,
 RFANN and RSANN queries.  The index is a thin host-side handle around one
 :class:`~repro_torch.core.store.IndexStore`.
 
+The graph is always built from the f32 vectors; ``dtype`` selects the scan
+plane the search scores against (``f32``, ``bf16``, ``int8``, ``pq``) and
+``rerank`` attaches the exact f32 plane (on by default for int8 and pq).
+
 ``save``/``load`` use the reference's on-disk format (``index.npz`` +
-``meta.json``: ``x`` and ``intervals`` float32, ``nbrs`` int32, ``status``
-uint8), so an index crosses between the two packages in either direction.
+``meta.json``): ``x`` holds the scan plane in its own dtype (bf16 as a
+uint16 bit view), ``intervals`` float32, ``nbrs`` int32, ``status`` uint8,
+and where present ``x_scale``/``x_zero`` (int8), ``x_codebooks`` (pq) and
+``rerank`` (f32).  An index crosses between the two packages in either
+direction, and a saved plane is read back, never encoded again.
 """
 from __future__ import annotations
 
@@ -24,7 +31,8 @@ from repro_torch.core.exact import DenseGraph
 from repro_torch.core.search import SearchResult, brute_force
 from repro_torch.core.search import search as core_search
 from repro_torch.core.search import search_mixed as core_search_mixed
-from repro_torch.core.store import IndexStore, as_tensor, make_store
+from repro_torch.core.entry import build_entry_index
+from repro_torch.core.store import IndexStore, VectorPlane, as_tensor, make_store
 from repro_torch.kernels.util import no_tf32, resolve_device
 
 
@@ -57,12 +65,22 @@ class UGIndex:
     def device(self) -> torch.device:
         return self.store.device
 
+    @property
+    def dtype(self) -> str:
+        """Scan-plane tag: ``f32`` | ``bf16`` | ``int8`` | ``pq``."""
+        return self.store.plane.tag
+
+    def with_store(self, store: IndexStore) -> "UGIndex":
+        return dataclasses.replace(self, store=store)
+
     # ------------------------------------------------------------------ build
     @classmethod
     def build(cls, x, intervals, config: UGConfig = UGConfig(), seed: int = 0,
-              progress=None, *, dtype: str = "f32", device=None) -> "UGIndex":
-        """Alg. 1–3 build on ``device`` (``None`` = the card).  NN-descent
-        draws from a ``torch.Generator`` seeded with ``seed``."""
+              progress=None, *, dtype: str = "f32", rerank: bool | None = None,
+              device=None) -> "UGIndex":
+        """Alg. 1–3 build on ``device`` (``None`` = the card), then the plane
+        encoding.  NN-descent draws from a ``torch.Generator`` seeded with
+        ``seed``.  ``rerank`` defaults to on for int8 and pq."""
         dev = resolve_device(device)
         no_tf32()
         x = _on(x, dev)
@@ -73,8 +91,22 @@ class UGIndex:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         dt = time.perf_counter() - t0
-        store = make_store(x, intervals, graph.nbrs, graph.status, dtype=dtype, device=dev)
+        if rerank is None:
+            rerank = dtype in ("int8", "pq")
+        store = make_store(x, intervals, graph.nbrs, graph.status, dtype=dtype,
+                           rerank=rerank, device=dev)
         return cls(store, config, dt)
+
+    def with_dtype(self, dtype: str, *, rerank: bool | None = None) -> "UGIndex":
+        """Re-encode the vector planes from the best-precision f32 vectors:
+        the same graph and ids, another scan plane (``rerank`` defaults to
+        on for int8 and pq)."""
+        if rerank is None:
+            rerank = dtype in ("int8", "pq")
+        x = self.store.vectors_f32()
+        return self.with_store(self.store.replace(
+            plane=VectorPlane.encode(x, dtype),
+            rerank=VectorPlane.encode(x, "f32") if rerank else None))
 
     # ----------------------------------------------------------------- search
     def search(self, q_v, q_int, *, sem: iv.Semantics = iv.Semantics.IF, ef: int = 64,
@@ -96,7 +128,8 @@ class UGIndex:
                                  backend=backend, width=width)
 
     def ground_truth(self, q_v, q_int, *, sem: iv.Semantics, k: int) -> SearchResult:
-        """Exact predicate-filtered top-k over the f32 vectors."""
+        """Exact predicate-filtered top-k over the best-precision vectors
+        (the rerank plane when present, else the decoded scan plane)."""
         no_tf32()
         return brute_force(self.x, self.intervals, _on(q_v, self.device),
                            _on(q_int, self.device), sem=sem, k=k)
@@ -113,6 +146,7 @@ class UGIndex:
         return int(m["graph"] + m["entry"] + m["masks"])
 
     def vector_memory_bytes(self) -> dict:
+        """Scan-plane and rerank-plane bytes, and scan-plane bytes per vector."""
         m = self.store.memory_bytes()
         return {
             "plane": m["plane"],
@@ -138,13 +172,22 @@ class UGIndex:
         path = pathlib.Path(path)
         path.mkdir(parents=True, exist_ok=True)
         st = self.store
-        np.savez_compressed(
-            path / "index.npz",
-            x=st.plane.data.cpu().numpy().astype(np.float32),
-            intervals=st.intervals.cpu().numpy().astype(np.float32),
-            nbrs=st.nbrs.cpu().numpy().astype(np.int32),
-            status=st.status.cpu().numpy().astype(np.uint8),
-        )
+        npy = lambda t: t.detach().cpu().numpy()
+        if st.plane.tag == "bf16":
+            # numpy has no bfloat16: store the codes as a uint16 bit view
+            x_np = npy(st.plane.data.view(torch.int16)).view(np.uint16)
+        else:
+            x_np = npy(st.plane.data)
+        arrays = dict(x=x_np, intervals=npy(st.intervals), nbrs=npy(st.nbrs),
+                      status=npy(st.status))
+        if st.plane.scale is not None:
+            arrays["x_scale"] = npy(st.plane.scale)
+            arrays["x_zero"] = npy(st.plane.zero)
+        if st.plane.codebooks is not None:
+            arrays["x_codebooks"] = npy(st.plane.codebooks)
+        if st.rerank is not None:
+            arrays["rerank"] = npy(st.rerank.data)
+        np.savez_compressed(path / "index.npz", **arrays)
         meta = dataclasses.asdict(self.config)
         meta["build_seconds"] = self.build_seconds
         meta["dtype"] = st.plane.tag
@@ -152,8 +195,9 @@ class UGIndex:
 
     @classmethod
     def load(cls, path: str | pathlib.Path, device=None) -> "UGIndex":
-        """Read an index the reference (or the port) saved; the entry index is
-        rebuilt from the intervals."""
+        """Read an index the reference (or the port) saved.  The planes are
+        taken as stored (never encoded again); the entry index is rebuilt
+        from the intervals."""
         dev = resolve_device(device)
         path = pathlib.Path(path)
         meta = json.loads((path / "meta.json").read_text())
@@ -161,14 +205,24 @@ class UGIndex:
         tag = meta.pop("dtype", "f32")
         cfg = UGConfig(**meta)
         with np.load(path / "index.npz") as blob:
-            extra = sorted(set(blob.files) - {"x", "intervals", "nbrs", "status"})
-            if extra:
-                raise NotImplementedError(
-                    f"index arrays {extra} (tombstones, rerank or quantized planes) are not "
-                    "ported yet (ROADMAP.md queue 1, items 6 and 8)")
-            arrays = {k: blob[k] for k in ("x", "intervals", "nbrs", "status")}
-        store = make_store(arrays["x"], arrays["intervals"], arrays["nbrs"], arrays["status"],
-                           dtype=tag, device=dev)
+            arrays = {k: blob[k] for k in blob.files}
+        if "alive" in arrays or "free" in arrays:
+            raise NotImplementedError(
+                "tombstoned indexes (alive/free arrays) are not ported yet "
+                "(ROADMAP.md queue 1, item 8 'core/updates.py')")
+        on = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+        if tag == "bf16":                       # stored as a uint16 bit view (see save)
+            x = on(arrays["x"].view(np.int16)).view(torch.bfloat16)
+        else:
+            x = on(arrays["x"])
+        opt = lambda k: on(arrays[k]) if k in arrays else None
+        plane = VectorPlane(tag, x, opt("x_scale"), opt("x_zero"), opt("x_codebooks"))
+        rerank = VectorPlane("f32", on(arrays["rerank"])) if "rerank" in arrays else None
+        intervals = as_tensor(arrays["intervals"], torch.float32, dev)
+        store = IndexStore(plane=plane, rerank=rerank, intervals=intervals,
+                           nbrs=as_tensor(arrays["nbrs"], torch.int32, dev),
+                           status=as_tensor(arrays["status"], torch.uint8, dev),
+                           entry=build_entry_index(intervals))
         return cls(store, cfg, build_seconds)
 
 

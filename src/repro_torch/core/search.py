@@ -15,8 +15,10 @@ four semantics.  Every per-row quantity is computed row-independently, so
 each row's answer is bitwise independent of the rest of the batch: a mixed
 batch returns exactly the per-semantics answers.
 
-Only the static index (no tombstones, no rerank plane) is ported so far;
-the reference's one-node-per-step ``legacy`` loop is not.
+A quantized scan plane (bf16, int8, pq) steers the traversal; with an f32
+rerank plane the surviving beam is re-scored exactly before the top-k.  Only
+the static index (no tombstones) is ported so far; the reference's
+one-node-per-step ``legacy`` loop is not.
 """
 from __future__ import annotations
 
@@ -24,13 +26,16 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
 
 from repro_torch.core import intervals as iv
 from repro_torch.core.candidates import merge_topk
 from repro_torch.core.entry import get_entry_batch_flags
+from repro_torch.core.store import PQ_K, VectorPlane, default_pq_m
 from repro_torch.kernels import ops
 from repro_torch.kernels.beam_merge import PAD_PAYLOAD, next_pow2
-from repro_torch.kernels.expand_score import dedup_first
+from repro_torch.kernels.expand_score import dedup_first, dedup_first_quadratic
 from repro_torch.kernels.util import resolve_backend
 
 # 1 << b as int32 words: bit 31 is negative in two's complement, which is
@@ -76,21 +81,29 @@ def _make_fused_step(plane, intervals, nbrs, status, q32, q_int, sem_flags, *, W
     """Build ``(step, score, merge)`` for the fused hot loop.
 
     ``step`` advances ``(beam_d, beam_p, visited, steps)`` by one
-    multi-expansion; ``visited`` is updated in place."""
+    multi-expansion; ``visited`` is updated in place.  With
+    ``backend="legacy"`` the step scores with the pre-fusion baselines
+    (``(B, C, d)`` gather + matmul) and dedups with the ``O(C²)`` pairwise
+    mask: the A/B of :func:`search_step_memory_profile` only."""
     n = plane.data.shape[0]
     M = nbrs.shape[1]
     B = q32.shape[0]
     C = W * M
     bits = bit_table(q32.device)
+    merge_backend = "torch" if backend == "legacy" else backend
+    dedup = dedup_first_quadratic if backend == "legacy" else dedup_first
+    # pq plane: the per-query (m, 256) tables are built here, once per
+    # batch, and every step reuses them (None for other planes).
+    lut = ops.pq_lut(plane, q32)
 
     def score(ids_c, valid):
         """Squared distances of the masked candidate ids (+inf where invalid)."""
         idx = torch.where(valid, ids_c, -1).to(torch.int32).contiguous()
-        return ops.expand_score_plane(plane, idx, q32, backend=backend)
+        return ops.expand_score_plane(plane, idx, q32, backend=backend, lut=lut)
 
     def merge(beam_d, beam_p, cand_d, cand_p):
         return ops.beam_merge(beam_d, beam_p, cand_d.contiguous(), cand_p.contiguous(),
-                              backend=backend)
+                              backend=merge_backend)
 
     def step(beam_d, beam_p, visited, steps):
         # ExtractMin_W: the W best unexpanded entries, ties to the lower slot.
@@ -117,8 +130,8 @@ def _make_fused_step(plane, intervals, nbrs, status, q32, q_int, sem_flags, *, W
         # Mark scored and node-dead candidates, never edge-masked ones; one
         # id may repeat across the W lists, so only its first eligible
         # occurrence is scored and marked (the scatter-add stays an OR).
-        valid = dedup_first(nb_c, cand_ok)
-        to_mark = dedup_first(nb_c, present & ~seen & (cand_ok | ~pred_ok))
+        valid = dedup(nb_c, cand_ok)
+        to_mark = dedup(nb_c, present & ~seen & (cand_ok | ~pred_ok))
         _bitmap_set(visited, nb_c, to_mark, bits)
 
         cand_d = score(nb_c, valid)
@@ -130,14 +143,19 @@ def _make_fused_step(plane, intervals, nbrs, status, q32, q_int, sem_flags, *, W
     return step, score, merge
 
 
-def _beam_search_fused(plane, intervals, nbrs, status, entry_ids, q_v, q_int, sem_flags,
-                       *, ef: int, k: int, max_steps: int, width: int, backend: str) -> SearchResult:
+def _beam_search_fused(plane, rerank, intervals, nbrs, status, entry_ids, q_v, q_int,
+                       sem_flags, *, ef: int, k: int, max_steps: int, width: int,
+                       backend: str) -> SearchResult:
     """Fused multi-expansion Alg. 4.
 
     The beam is ``E = next_pow2(ef)`` wide (``+inf``/``PAD_PAYLOAD``
     padded) and kept ascending under the total order ``(dist, payload)``;
     each payload packs ``id << 1 | expanded``.  The loop runs while any row
-    has an unexpanded finite entry, one host sync per iteration."""
+    has an unexpanded finite entry, one host sync per iteration.
+
+    With a rerank plane the scan plane's distances steer the traversal
+    only: the surviving beam is re-scored against the exact f32 plane
+    (``E`` row fetches per query, once) before the top-k."""
     n = plane.data.shape[0]
     B = q_v.shape[0]
     dev = q_v.device
@@ -166,6 +184,18 @@ def _beam_search_fused(plane, intervals, nbrs, status, entry_ids, q_v, q_int, se
         beam_d, beam_p, visited, steps = step(beam_d, beam_p, visited, steps)
         it += 1
 
+    if rerank is not None:
+        # The re-scored beam is no longer sorted: a stable ascending sort
+        # and a slice, which keep the lowest slot first on ties as the
+        # reference's top_k of the negated distances does.
+        all_ids = beam_p >> 1
+        ok = torch.isfinite(beam_d)
+        idx = torch.where(ok, all_ids, -1).to(torch.int32).contiguous()
+        beam_d = ops.expand_score(rerank.data, idx, q32, backend=backend)
+        vals, sel = torch.sort(torch.where(ok, beam_d, torch.inf), dim=-1, stable=True)
+        dist = vals[:, :k]
+        ids = torch.where(torch.isfinite(dist), torch.gather(all_ids, 1, sel[:, :k]), -1)
+        return SearchResult(ids, dist, steps, it)
     dist = beam_d[:, :k]                                   # the beam is sorted
     ids = torch.where(torch.isfinite(dist), beam_p[:, :k] >> 1, -1)
     return SearchResult(ids, dist, steps, it)
@@ -175,9 +205,6 @@ def _static_only(store) -> None:
     if store.alive is not None or store.free is not None:
         raise NotImplementedError(
             "tombstoned stores are not ported yet (ROADMAP.md queue 1, item 8 'core/updates.py')")
-    if store.rerank is not None:
-        raise NotImplementedError(
-            "rerank planes are not ported yet (ROADMAP.md queue 1, item 6 'Quantized planes')")
 
 
 def beam_search_flags(store, entry_ids, q_v, q_int, sem_flags, *, ef: int, k: int,
@@ -195,7 +222,8 @@ def beam_search_flags(store, entry_ids, q_v, q_int, sem_flags, *, ef: int, k: in
     steps_cap = max_steps if max_steps > 0 else 8 * ef + 32
     ent = entry_ids[:, None] if entry_ids.ndim == 1 else entry_ids
     return _beam_search_fused(
-        store.plane, store.intervals, store.nbrs, store.status, ent.to(torch.int32),
+        store.plane, store.rerank, store.intervals, store.nbrs, store.status,
+        ent.to(torch.int32),
         q_v, q_int.to(torch.float32), sem_flags.to(torch.int32),
         ef=ef, k=k, max_steps=steps_cap, width=width, backend=backend,
     )
@@ -229,6 +257,73 @@ def search(store, q_v, q_int, *, sem: iv.Semantics, ef: int, k: int, max_steps: 
     """Entry acquisition (Alg. 5) + interval-aware beam search (Alg. 4)."""
     return search_mixed(store, q_v, q_int, sem, ef=ef, k=k, max_steps=max_steps,
                         backend=backend, width=width)
+
+
+# ------------------------------------------------------------ memory profile
+class _OutputShapes(TorchDispatchMode):
+    """Records ``(shape, dtype, bytes)`` of every tensor an op returns."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_flatten(out)[0]:
+            if isinstance(t, torch.Tensor):
+                self.seen.append((tuple(t.shape), t.dtype, t.numel() * t.element_size()))
+        return out
+
+
+def search_step_memory_profile(backend: str = "torch", *, B: int = 8, n: int = 2048,
+                               d: int = 24, M: int = 16, width: int = 4, ef: int = 32,
+                               dtype: str = "f32", seed: int = 0) -> dict:
+    """Run one fused search step on the CPU and report its intermediates.
+
+    The step (and its pq tables) runs under a dispatch mode that records the
+    shape of every tensor an op returns.  Returns ``{"peak_bytes",
+    "bcd_gather", "cc_pairwise", "decoded_nd"}``: the largest such tensor,
+    and whether a ``(B, C, d)`` candidate gather, a ``(·, C, C)`` pairwise
+    dedup tensor, or (on an int8 or pq plane) a decoded ``(n, d)`` f32
+    corpus appeared.  ``backend="torch"`` runs the plain versions of the
+    fused kernels and must show none of them; ``"legacy"`` runs the
+    pre-fusion scorers and dedup, which show the gather and the pairwise
+    tensor, and on pq the decoded corpus."""
+    g = torch.Generator().manual_seed(seed)
+    W = max(min(width, ef), 1)
+    C = W * M
+    E = next_pow2(ef)
+    x = torch.randn(n, d, generator=g)
+    if dtype == "int8":
+        plane = VectorPlane("int8", torch.randint(-127, 128, (n, d), generator=g).to(torch.int8),
+                            torch.rand(d, generator=g) + 0.5, torch.randn(d, generator=g))
+    elif dtype == "pq":
+        m = default_pq_m(d)
+        plane = VectorPlane("pq", torch.randint(0, PQ_K, (n, m), generator=g).to(torch.uint8),
+                            codebooks=torch.randn(m, PQ_K, d // m, generator=g))
+    else:
+        plane = VectorPlane.encode(x, dtype)
+    intervals = torch.sort(torch.rand(n, 2, generator=g), dim=-1).values
+    nbrs = torch.randint(0, n, (n, M), generator=g, dtype=torch.int32)
+    status = torch.randint(1, 4, (n, M), generator=g).to(torch.uint8)
+    q_v = torch.randn(B, d, generator=g)
+    q_int = torch.sort(torch.rand(B, 2, generator=g), dim=-1).values
+    flags = torch.randint(1, 3, (B,), generator=g, dtype=torch.int32)
+    beam_d = torch.sort(torch.rand(B, E, generator=g), dim=-1).values
+    beam_p = torch.randint(0, n, (B, E), generator=g, dtype=torch.int32) << 1
+    visited = torch.zeros((B, (n + 31) // 32), dtype=torch.int32)
+    steps = torch.zeros((B,), dtype=torch.int32)
+    with _OutputShapes() as rec:
+        step, _, _ = _make_fused_step(plane, intervals, nbrs, status, q_v, q_int, flags,
+                                      W=W, backend=backend)
+        step(beam_d, beam_p, visited, steps)
+    return {
+        "peak_bytes": max(nbytes for _, _, nbytes in rec.seen),
+        "bcd_gather": any(len(s) >= 3 and s[-2:] == (C, d) for s, _, _ in rec.seen),
+        "cc_pairwise": any(len(s) >= 2 and s[-2:] == (C, C) for s, _, _ in rec.seen),
+        "decoded_nd": dtype in ("int8", "pq") and any(
+            s[-2:] == (n, d) and dt == torch.float32 for s, dt, _ in rec.seen),
+    }
 
 
 # ----------------------------------------------------------------- exact

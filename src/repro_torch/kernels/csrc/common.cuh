@@ -14,17 +14,19 @@
 
 #define REPRO_FULL_MASK 0xffffffffu
 
-// Square-difference sum of two d-vectors, lane-strided then butterflied.
-// Every lane of the warp returns the same value.
-__device__ __forceinline__ float warp_sq_dist(const float* __restrict__ a,
-                                              const float* __restrict__ b,
-                                              int d, int lane) {
+// Square-difference sum of the f32 d-vector a against a row whose element k
+// is row(k) as an f32 (a plain load, a bf16 widening or an int8 dequant),
+// lane-strided then butterflied.  Every lane of the warp returns the same
+// value; elements at k >= d are never read.
+template <typename Row>
+__device__ __forceinline__ float warp_sq_dist_row(const float* __restrict__ a, Row row,
+                                                  int d, int lane) {
     const int chunks = (d + 31) / 32;
     float acc = 0.0f;
     for (int i = 0, k = lane; i < chunks; ++i, k += 32) {
         float term = 0.0f;
         if (k < d) {
-            const float df = __fsub_rn(a[k], b[k]);
+            const float df = __fsub_rn(a[k], row(k));
             term = __fmul_rn(df, df);
         }
         acc = (i == 0) ? term : __fadd_rn(acc, term);
@@ -32,4 +34,11 @@ __device__ __forceinline__ float warp_sq_dist(const float* __restrict__ a,
     for (int off = 16; off >= 1; off >>= 1)
         acc = __fadd_rn(acc, __shfl_xor_sync(REPRO_FULL_MASK, acc, off));
     return acc;
+}
+
+// Square-difference sum of two f32 d-vectors.
+__device__ __forceinline__ float warp_sq_dist(const float* __restrict__ a,
+                                              const float* __restrict__ b,
+                                              int d, int lane) {
+    return warp_sq_dist_row(a, [b](int k) { return b[k]; }, d, lane);
 }

@@ -25,7 +25,8 @@ import threading
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("expand_score.cu", "beam_merge.cu", "prune_sweep.cu")
+SOURCES = ("expand_score.cu", "expand_score_q.cu", "expand_score_pq.cu", "beam_merge.cu",
+           "prune_sweep.cu")
 HEADERS = ("common.cuh",)
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
 BUILD_ROOT = REPO_ROOT / "build" / "repro_torch_kernels"
@@ -34,7 +35,8 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-launches = {"expand_score": 0, "beam_merge": 0, "prune_sweep": 0}
+launches = {"expand_score": 0, "expand_score_bf16": 0, "expand_score_q": 0,
+            "expand_score_pq": 0, "beam_merge": 0, "prune_sweep": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +44,9 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "repro_expand_score": (_P, _P, _P, _P, _L, _I, _I, _I, _P),
+    "repro_expand_score_bf16": (_P, _P, _P, _P, _L, _I, _I, _I, _P),
+    "repro_expand_score_q": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
+    "repro_expand_score_pq": (_P, _P, _P, _P, _L, _I, _I, _I, _P),
     "repro_beam_merge": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "repro_prune_sweep": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _F, _I, _P),

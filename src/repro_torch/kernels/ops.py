@@ -21,19 +21,44 @@ reset_launches = cuda_lib.reset_launches
 
 def expand_score(x, idx, q, *, backend: str | None = None):
     """Squared L2 between ``q[b]`` and ``x[idx[b, c]]`` (``+inf`` where
-    ``idx < 0``)."""
+    ``idx < 0``); ``x`` is float32 or bfloat16."""
     if resolve_backend(backend, x) == "cuda":
         return expand_score_mod.expand_score_cuda(x, idx, q)
     return expand_score_mod.expand_score_torch(x, idx, q)
 
 
-def expand_score_plane(plane, idx, q, *, backend: str | None = None):
-    """Expand-score against a vector plane (core/store.py).  Only the f32
-    plane is ported so far."""
-    if plane.tag != "f32":
-        raise NotImplementedError(
-            f"{plane.tag} plane scoring is not ported yet (ROADMAP.md queue 1, "
-            "item 6 'Quantized planes')")
+def pq_lut(plane, q):
+    """Per-query ``(m, 256)`` pq distance tables for ``plane`` (``None`` for
+    planes that are not pq).  The fused search loop builds them once per
+    batch and hands them to every :func:`expand_score_plane` step."""
+    if plane.tag != "pq":
+        return None
+    return expand_score_mod.pq_lut(plane.codebooks, q)
+
+
+def expand_score_plane(plane, idx, q, *, backend: str | None = None, lut=None):
+    """Expand-score against a vector plane (core/store.py), dispatched on its
+    tag: ``f32`` and ``bf16`` go to :func:`expand_score`, ``int8`` to the
+    dequantizing kernel, ``pq`` to the table-lookup kernel (``lut`` from
+    :func:`pq_lut`, built here when not given).  ``backend="legacy"`` runs
+    the pre-fusion baselines, which materialise the ``(B, C, d)`` gather
+    (the memory profile's A/B only).  ``plane`` is duck-typed
+    (``tag``/``data``/``scale``/``zero``/``codebooks``)."""
+    es = expand_score_mod
+    if backend == "legacy":
+        if plane.tag == "pq":
+            return es.expand_score_pq_legacy(plane.data, plane.codebooks, idx, q)
+        if plane.tag == "int8":
+            return es.expand_score_q_legacy(plane.data, plane.scale, plane.zero, idx, q)
+        return es.expand_score_legacy(plane.data, idx, q)
+    if plane.tag == "pq":
+        fn = es.expand_score_pq_cuda if resolve_backend(backend, plane.data) == "cuda" \
+            else es.expand_score_pq_torch
+        return fn(plane.data, plane.codebooks, idx, q, lut=lut)
+    if plane.tag == "int8":
+        fn = es.expand_score_q_cuda if resolve_backend(backend, plane.data) == "cuda" \
+            else es.expand_score_q_torch
+        return fn(plane.data, plane.scale, plane.zero, idx, q)
     return expand_score(plane.data, idx, q, backend=backend)
 
 

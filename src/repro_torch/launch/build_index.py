@@ -6,7 +6,7 @@ and self-test recall.
 Example::
 
     PYTHONPATH=src python -m repro_torch.launch.build_index --n 4000 --dim 32 \
-        --out /tmp/ug_index
+        --dtype int8 --out /tmp/ug_index
 """
 from __future__ import annotations
 
@@ -30,8 +30,13 @@ def main(argv=None) -> int:
     ap.add_argument("--prune-backend", default="auto", choices=["auto", "cuda", "torch"],
                     help="pruning-sweep backend (auto = the CUDA kernel on the card, the "
                          "plain PyTorch version on the CPU); both build bit-identical graphs")
-    ap.add_argument("--dtype", default="f32", choices=["f32"],
-                    help="vector scan plane (only f32 is ported)")
+    ap.add_argument("--dtype", default="f32", choices=["f32", "bf16", "int8", "pq"],
+                    help="vector scan plane: bf16 halves and int8 quarters the per-vector "
+                         "scan bytes; pq keeps one byte per d/m-dim subspace; the graph is "
+                         "always built from the f32 vectors")
+    ap.add_argument("--rerank", action=argparse.BooleanOptionalAction, default=None,
+                    help="attach the exact f32 rerank plane for final-top-k re-scoring "
+                         "(default: on for int8/pq, off otherwise)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the plain versions)")
     ap.add_argument("--out", default=None, help="directory to save the index")
@@ -49,12 +54,13 @@ def main(argv=None) -> int:
     )
     idx = UGIndex.build(x, ints, cfg, seed=args.seed,
                         progress=lambda m: print(f"[build] {m}"),
-                        dtype=args.dtype, device=args.device)
+                        dtype=args.dtype, rerank=args.rerank, device=args.device)
     vm = idx.vector_memory_bytes()
     print(f"[build] done in {idx.build_seconds:.1f}s; "
           f"{idx.memory_bytes():,} graph bytes; "
           f"{args.dtype} plane {vm['plane']:,} bytes "
-          f"({vm['plane_bytes_per_vector']:.1f} B/vec); "
+          f"({vm['plane_bytes_per_vector']:.1f} B/vec"
+          f"{', +f32 rerank' if idx.store.rerank is not None else ''}); "
           f"degrees {idx.degree_stats()}")
     if args.out:
         idx.save(args.out)

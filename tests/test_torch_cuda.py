@@ -65,6 +65,92 @@ def test_expand_score_main_shape(dev):
                    [ops.expand_score(x, idx, q, backend="torch")])
 
 
+def mask_rows(idx: np.ndarray) -> np.ndarray:
+    """Candidate ids with every third query row wholly masked."""
+    idx = idx.copy()
+    idx[::3] = -1
+    return idx
+
+
+@pytest.mark.parametrize("n,d,B,C", [(50, 8, 3, 5), (300, 19, 17, 40), (1000, 33, 9, 64),
+                                     (1000, 128, 64, 256)])
+def test_expand_score_bf16_matches_plain(dev, n, d, B, C):
+    x, idx, q = expand_case(dev, n, d, B, C, seed=d)
+    x = x.to(torch.bfloat16)
+    idx = torch.as_tensor(mask_rows(idx.cpu().numpy()), device=dev)
+    assert_bitwise([ops.expand_score(x, idx, q, backend="cuda")],
+                   [ops.expand_score(x, idx, q, backend="torch")])
+
+
+def int8_case(dev, n, d, B, C, *, seed=0):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(-127, 128, (n, d)).astype(np.int8)
+    scale = rng.uniform(0.01, 0.1, d).astype(np.float32)
+    zero = rng.normal(size=d).astype(np.float32)
+    q = rng.normal(size=(B, d)).astype(np.float32)
+    idx = rng.integers(0, n, (B, C)).astype(np.int32)
+    idx[rng.uniform(size=(B, C)) < 0.2] = -1
+    return tuple(torch.as_tensor(a, device=dev) for a in (codes, scale, zero, mask_rows(idx), q))
+
+
+@pytest.mark.parametrize("n,d,B,C", [(50, 8, 3, 5), (300, 19, 17, 40), (1000, 33, 9, 64),
+                                     (1000, 128, 64, 256)])
+def test_expand_score_q_matches_plain(dev, n, d, B, C):
+    from repro_torch.kernels import expand_score as es
+
+    case = int8_case(dev, n, d, B, C, seed=n + d)
+    assert_bitwise([es.expand_score_q_cuda(*case)], [es.expand_score_q_torch(*case)])
+
+
+def pq_case(dev, n, m, dsub, B, C, *, seed=0):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 256, (n, m)).astype(np.uint8)
+    cb = rng.normal(size=(m, 256, dsub)).astype(np.float32)
+    q = rng.normal(size=(B, m * dsub)).astype(np.float32)
+    idx = rng.integers(0, n, (B, C)).astype(np.int32)
+    idx[rng.uniform(size=(B, C)) < 0.2] = -1
+    return tuple(torch.as_tensor(a, device=dev) for a in (codes, cb, mask_rows(idx), q))
+
+
+@pytest.mark.parametrize("m,dsub,B,C", [(1, 8, 3, 5), (16, 8, 17, 40), (16, 8, 9, 256),
+                                        (192, 8, 5, 70), (3, 1, 4, 300)])
+def test_expand_score_pq_matches_plain(dev, m, dsub, B, C):
+    """m = 192 (d = 1536) stages 196,608 bytes a block, above the 48 KB
+    that needs no opt-in."""
+    from repro_torch.kernels import expand_score as es
+
+    codes, cb, idx, q = pq_case(dev, 500, m, dsub, B, C, seed=m + C)
+    lut = es.pq_lut(cb, q)
+    assert_bitwise([es.expand_score_pq_cuda(codes, cb, idx, q, lut=lut)],
+                   [es.expand_score_pq_torch(codes, cb, idx, q, lut=lut)])
+
+
+def test_expand_score_pq_refuses_tables_above_shared_memory(dev):
+    from repro_torch.kernels import expand_score as es
+
+    codes, cb, idx, q = pq_case(dev, 20, 250, 1, 2, 3)
+    with pytest.raises(ValueError):
+        es.expand_score_pq_cuda(codes, cb, idx, q)
+
+
+def test_quantized_kernels_main_shape(dev):
+    """n = 1M, d = 128, B = 10,000, C = 256, 20 % masked: the shape of
+    chip_smoke.py's phase 2."""
+    from repro_torch.kernels import expand_score as es
+
+    n, d, B, C = 1_000_000, 128, 10_000, 256
+    case = int8_case(dev, n, d, B, C, seed=11)
+    assert_bitwise([es.expand_score_q_cuda(*case)], [es.expand_score_q_torch(*case)])
+    codes, cb, idx, q = pq_case(dev, n, 16, 8, B, C, seed=12)
+    lut = es.pq_lut(cb, q)
+    assert_bitwise([es.expand_score_pq_cuda(codes, cb, idx, q, lut=lut)],
+                   [es.expand_score_pq_torch(codes, cb, idx, q, lut=lut)])
+    x, idx, q = expand_case(dev, n, d, B, C, seed=13)
+    x = x.to(torch.bfloat16)
+    assert_bitwise([ops.expand_score(x, idx, q, backend="cuda")],
+                   [ops.expand_score(x, idx, q, backend="torch")])
+
+
 def beam_case(dev, B, E, L, *, seed=0):
     rng = np.random.default_rng(seed)
     pool = [0.25, 0.5, 1.0, 2.0]
@@ -160,7 +246,15 @@ def test_launch_counters_count_kernel_launches(dev):
     x, idx, q = expand_case(dev, 100, 16, 4, 8)
     ops.expand_score(x, idx, q, backend="cuda")
     ops.expand_score(x, idx, q, backend="torch")
-    assert ops.launches["expand_score"] == 1
+    ops.expand_score(x.to(torch.bfloat16), idx, q, backend="cuda")
+    assert ops.launches["expand_score"] == 1 and ops.launches["expand_score_bf16"] == 1
+    from repro_torch.core.store import VectorPlane
+
+    for tag in ("int8", "pq"):
+        plane = VectorPlane.encode(x, tag)
+        ops.expand_score_plane(plane, idx, q, backend="cuda")
+        ops.expand_score_plane(plane, idx, q, backend="torch")
+        assert ops.launches[f"expand_score_{'q' if tag == 'int8' else 'pq'}"] == 1
 
 
 def test_cuda_backend_rejects_cpu_tensors():
