@@ -37,7 +37,23 @@ the script exits non-zero without printing a result):
    kernels (counted from 0 over its warm-up and timed batches); checks on
    1,000 queries (``backend="cuda"`` equals ``"torch"`` bitwise, the mixed
    batch equals four per-semantics batches) and a tripwire on the
-   50,000-row index: mean recall@10 ≥ half of the f32 plane's.
+   50,000-row index: mean recall@10 ≥ half of the f32 plane's;
+6. the paper-table bench path at full width, on phase 3's corpus, config
+   and index: (a) ``pairwise_sq_dist`` at 10,000 queries × 65,536 corpus
+   rows × 128, f32 and bf16, bitwise against its plain version, bf16 and
+   ``torch.cdist`` timed; (b) ``filtered_topk`` (k = 10, IF and IS,
+   uniform windows) bitwise against its plain version on 1,000 queries
+   against the whole 1M corpus and at a ragged small shape, ``brute_force``
+   timed on all 10,000 queries; (c) the scan against ``prefilter_search``
+   on those 1,000 queries; (d) Exp-1 and Exp-4 through ``repro_torch.bench``
+   (post-filter and Hi-PNG builds at 1M, IF search of the 10,000 queries,
+   the kernel table at these shapes, whose rows give both kernels' times:
+   each kernel on all 10,000 queries, the plain scan on the first 1,000)
+   with its launches counted from 0, and tripwires: every post-filter and
+   Hi-PNG answer passes the predicate, the pre-filter's recall is 1, the
+   post-filter's ``backend="cuda"`` equals ``"torch"``; (e) ``build_exact``
+   at n = 1,000: prune backends cuda and torch give the same graph, and one
+   structural-heredity check (Thm 3.5) holds.
 
 The last line is ``{"ok": true, "device": {...}}``.  Nothing here imports
 JAX or the reference package.
@@ -67,6 +83,11 @@ PATH_KERNELS = {
     "pq": ("expand_score_pq", "expand_score", "beam_merge"),
 }
 PLANES = (("bf16", False), ("int8", True), ("pq", True))   # (tag, rerank)
+PATH_KERNELS["bench"] = ("pairwise_sq_dist", "filtered_topk")  # phase 6
+N_L2 = 65_536                  # corpus rows of the pairwise matrix (all 1M rows: 40 GB out)
+N_PLAIN = 1_000                # queries the plain filtered_topk is checked and timed on
+K_SCAN = 10
+N_EXACT = 1_000                # rows of the build_exact check
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 KERNELS = {
@@ -82,6 +103,10 @@ KERNELS = {
                    "src/repro/kernels/beam_merge.py:132"),
     "prune_sweep": ("src/repro_torch/kernels/csrc/prune_sweep.cu",
                     "src/repro/kernels/prune_sweep.py:167"),
+    "pairwise_sq_dist": ("src/repro_torch/kernels/csrc/l2dist.cu",
+                         "src/repro/kernels/l2dist.py:49"),
+    "filtered_topk": ("src/repro_torch/kernels/csrc/fused_scan.cu",
+                      "src/repro/kernels/fused_scan.py:87"),
 }
 
 
@@ -559,6 +584,160 @@ def phase5_planes(dev, main, check50) -> dict:
     return path_launches
 
 
+def same_topk(a, b) -> bool:
+    return all(bits_equal(x, y) for x, y in zip(a, b))
+
+
+def phase6_bench(dev, main) -> tuple[dict, dict]:
+    """The bench path; returns the two scan kernels' rows and the path's
+    launches."""
+    import torch
+
+    from repro_torch.bench import common, tables
+    from repro_torch.core import Semantics
+    from repro_torch.core import intervals as iv
+    from repro_torch.core.baselines import prefilter_search
+    from repro_torch.core.exact import build_exact
+    from repro_torch.core.search import brute_force
+    from repro_torch.data import CorpusConfig, make_queries
+    from repro_torch.kernels import ops
+
+    idx = main["idx"]
+    x, ints = idx.x, idx.intervals
+    n, d = x.shape
+    ccfg = CorpusConfig(n=n, dim=d, seed=0)
+    qv, qi = make_queries(ccfg, N_QUERIES, workload="uniform", device=dev)
+    nq = qv.shape[0]
+    rows = {}
+
+    # (a) pairwise_sq_dist, f32 and bf16
+    xl = x[:N_L2]
+    nx = xl.shape[0]
+    got = ops.pairwise_sq_dist(qv, xl, backend="cuda")
+    want = ops.pairwise_sq_dist(qv, xl, backend="torch")
+    torch.cuda.synchronize()
+    check(bits_equal(got, want), "pairwise_sq_dist kernel != plain version (f32)")
+    err = max_abs_err(got, want)
+    del got, want
+    qb, xb = qv.to(torch.bfloat16), xl.to(torch.bfloat16)
+    got = ops.pairwise_sq_dist(qb, xb, backend="cuda")
+    want = ops.pairwise_sq_dist(qb, xb, backend="torch")
+    torch.cuda.synchronize()
+    check(bits_equal(got, want), "pairwise_sq_dist kernel != plain version (bf16)")
+    err = max(err, max_abs_err(got, want))
+    del got, want
+    b_ms, b_by = bound((nq + nx) * d * 4 + nq * nx * 4, 2 * nq * nx * d + 3 * nq * nx)
+    rows["pairwise_sq_dist"] = dict(
+        bf16_ms=cuda_ms(lambda: ops.pairwise_sq_dist(qb, xb, backend="cuda"), reps=10),
+        library_ms=cuda_ms(lambda: torch.cdist(qv, xl), reps=10),
+        library="torch.cdist (adds a square root)", bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=err, shape=dict(nq=nq, nx=nx, d=d))
+    del qb, xb
+
+    # (b) filtered_topk: bitwise on 1,000 queries against the whole corpus
+    # and at a ragged small shape
+    qs, qis = qv[:N_PLAIN], qi[:N_PLAIN]
+    scan, err = {}, 0.0
+    for is_filter in (True, False):
+        kw = dict(is_filter=is_filter, k=K_SCAN)
+        got = ops.filtered_topk(qs, x, ints, qis, backend="cuda", **kw)
+        want = ops.filtered_topk(qs, x, ints, qis, backend="torch", **kw)
+        torch.cuda.synchronize()
+        check(same_topk(got, want), f"filtered_topk kernel != plain version (is_filter={is_filter})")
+        err = max(err, max_abs_err(got[0], want[0]))
+        for k in (1, 64):
+            small = (qv[:77], x[:3001], ints[:3001], qi[:77])
+            check(same_topk(ops.filtered_topk(*small, is_filter=is_filter, k=k, backend="cuda"),
+                            ops.filtered_topk(*small, is_filter=is_filter, k=k, backend="torch")),
+                  f"filtered_topk kernel != plain version at 77 x 3001, k = {k}")
+        scan[is_filter] = got
+    b_ms, b_by = bound((nq + n) * d * 4 + (nq + n) * 2 * 4 + nq * K_SCAN * 8, 2 * nq * n * d)
+    rows["filtered_topk"] = dict(
+        plain_queries=N_PLAIN, library_ms=None,
+        brute_force_ms=cuda_ms(lambda: brute_force(x, ints, qv, qi, sem=Semantics.IF, k=K_SCAN),
+                               reps=1, warm=1),
+        bound_ms=b_ms, bound_by=b_by, max_abs_err=err, shape=dict(nq=nq, nx=n, d=d, k=K_SCAN))
+
+    # (c) the scan is the exact pre-filter
+    prefilter = {}
+    for is_filter, sem in ((True, Semantics.IF), (False, Semantics.IS)):
+        vals, ids = scan[is_filter]
+        truth = prefilter_search(x, ints, qs, qis, sem=sem, k=K_SCAN)
+        finite = torch.isfinite(truth.dist)
+        check(bool(torch.equal(finite, torch.isfinite(vals))), f"{sem.value}: +inf pattern differs")
+        hits = sum(len(set(a[a >= 0].tolist()) & set(b[b >= 0].tolist()))
+                   for a, b in zip(ids.cpu().numpy(), truth.ids.cpu().numpy()))
+        overlap = hits / max(int(finite.sum()), 1)
+        close = bool(torch.allclose(vals[finite], truth.dist[finite], rtol=1e-5, atol=0.0))
+        differ = int((ids != truth.ids).any(dim=1).sum())
+        prefilter[sem.value] = dict(id_overlap=overlap, values_allclose=close, rows_differ=differ)
+        check(overlap >= 0.999 and close, f"filtered_topk vs prefilter_search ({sem.value}): "
+              f"overlap {overlap}, allclose {close}")
+    del scan
+    emit(phase=6, prefilter_cross_check=prefilter)
+
+    # (d) Exp-1, Exp-4 and the kernel table through the bench entry point, on
+    # phase 3's index; the kernel table's rows are the two kernels' times
+    b = common.Bench(n=n, dim=d, nq=nq, device=dev, cfg=idx.config, corpus=(x, ints), ug=idx)
+    ops.reset_launches()                                   # the bench path's run
+    bench_rows = tables.bench_ifann(b) + tables.bench_indexing(b) + tables.bench_kernels(
+        data=(qv, x, ints, qi), l2_nx=N_L2, plain_nq=N_PLAIN, device=dev)
+    launches = dict(ops.launches)
+    for r in bench_rows:
+        emit(phase=6, row=r["name"], us_per_call=r["us_per_call"], derived=r["derived"],
+             **r["metrics"])
+    for name in PATH_KERNELS["bench"]:
+        check(launches[name] > 0, f"{name} was not launched on the bench path")
+    by_name = {r["name"]: r["metrics"] for r in bench_rows}
+    for name, row in (("pairwise_sq_dist", "kernel_l2dist"), ("filtered_topk", "kernel_fusedscan")):
+        rows[name].update(ms=1e3 * by_name[f"{row}_cuda"]["seconds"],
+                          plain_ms=1e3 * by_name[f"{row}_torch_plain"]["seconds"])
+        emit(phase=6, kernel=name, bitwise=True, **{k: v for k, v in rows[name].items()
+                                                    if k != "max_abs_err"})
+    check(by_name["ifann_prefilter_exact"]["recall"] == 1.0, "pre-filter recall != 1")
+    pf, hp = b.postfilter_index(), b.hipng_index()
+    for what, res in (("post-filter", pf.search(qv, qi, sem=Semantics.IF, ef=128, k=10,
+                                                oversample=8)),
+                      ("Hi-PNG", hp.search(qv, qi, ef=64, k=10))):
+        ok = iv.predicate(Semantics.IF, ints[res.ids.clamp(min=0).long()], qi[:, None, :])
+        check(bool((ok | (res.ids < 0)).all()), f"{what} returned an id outside its window")
+    sub = slice(0, 1000)
+    r_cuda = pf.search(qv[sub], qi[sub], sem=Semantics.IF, ef=128, k=10, oversample=8,
+                       backend="cuda")
+    r_torch = pf.search(qv[sub], qi[sub], sem=Semantics.IF, ef=128, k=10, oversample=8,
+                        backend="torch")
+    check(same_result(r_cuda, r_torch), "post-filter search: backend='cuda' != 'torch'")
+
+    # (e) build_exact at n = 1,000: prune backends agree; heredity (Thm 3.5)
+    xe, ie = x[:N_EXACT], ints[:N_EXACT]
+    t0 = time.perf_counter()
+    g = build_exact(xe, ie, backend="cuda", device=dev)
+    torch.cuda.synchronize()
+    exact_cuda_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g_torch = build_exact(xe, ie, backend="torch", device=dev)
+    torch.cuda.synchronize()
+    exact_torch_s = time.perf_counter() - t0
+    check(bits_equal(g.nbrs, g_torch.nbrs) and bits_equal(g.status, g_torch.status),
+          "build_exact: prune backend cuda != torch")
+    mask = iv.query_valid_mask(Semantics.IF, ie, torch.tensor([0.25, 0.75], device=dev))
+    rebuilt = build_exact(xe, ie, node_mask=mask, backend="cuda", device=dev)
+
+    def if_edges(graph):
+        nb, st = graph.nbrs.cpu().numpy(), graph.status.cpu().numpy()
+        return {(u, int(v)) for u in range(nb.shape[0]) for v, f in zip(nb[u], st[u])
+                if v >= 0 and f & Semantics.IF.flag}
+    check(if_edges(g.induced(mask)) == if_edges(rebuilt), "build_exact: heredity (Thm 3.5) fails")
+    emit(phase=6, launches=launches, tripwires=dict(
+             filtered_answers_pass_predicate=True, prefilter_recall=1.0,
+             postfilter_search_bitwise=True),
+         build_exact=dict(n=N_EXACT, d=d, seconds_cuda=exact_cuda_s, seconds_torch=exact_torch_s,
+                          max_degree=g.max_degree, edges=int((g.nbrs >= 0).sum()),
+                          valid_nodes_of_heredity_window=int(mask.sum()), bitwise=True,
+                          heredity=True))
+    return rows, launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -577,12 +756,14 @@ def main() -> int:
     check50 = phase4_checks(dev, main_path)
     path_launches = phase5_planes(dev, main_path, check50)
     path_launches["f32"] = main_path["launches"]
+    scan_rows, path_launches["bench"] = phase6_bench(dev, main_path)
+    rows.update(scan_rows)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rows[name]
         # each kernel's launches on its own path (phase 3 or phase 5)
-        path = next(p for p in ("f32", "bf16", "int8", "pq") if name in PATH_KERNELS[p])
+        path = next(p for p in PATH_KERNELS if name in PATH_KERNELS[p])
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=path_launches[path][name], bitwise=True, max_abs_err=r["max_abs_err"],

@@ -66,6 +66,11 @@ def predicate(sem: Semantics, obj: torch.Tensor, query: torch.Tensor) -> torch.T
     return contains(obj, query)
 
 
+def query_valid_mask(sem: Semantics, intervals: torch.Tensor, q_interval: torch.Tensor) -> torch.Tensor:
+    """Validity of every object for one query: (n, 2) x (2,) -> (n,) bool."""
+    return predicate(sem, intervals, q_interval[None, :])
+
+
 def as_sem_flags(sem, batch_size: int, device=None) -> torch.Tensor:
     """Normalise a semantics spec to a ``(batch_size,)`` int32 flag tensor.
 

@@ -283,12 +283,14 @@ def make_store(
     *,
     dtype: str = "f32",
     rerank: bool = False,
+    build_entry: bool = True,
     device=None,
 ) -> IndexStore:
     """Assemble an :class:`IndexStore` from f32 vectors and graph arrays
     (numpy arrays or tensors) on ``device`` (``None`` = the card).  ``dtype``
     selects the scan plane, ``rerank=True`` attaches the exact f32 plane;
-    the entry structure is built from the intervals."""
+    the entry structure is built from the intervals, or left ``None`` with
+    ``build_entry=False`` (the baselines, which pick their own entries)."""
     dev = resolve_device(device)
     x = as_tensor(x, torch.float32, dev)
     intervals = as_tensor(intervals, torch.float32, dev)
@@ -298,5 +300,5 @@ def make_store(
         intervals=intervals,
         nbrs=as_tensor(nbrs, torch.int32, dev),
         status=as_tensor(status, torch.uint8, dev),
-        entry=build_entry_index(intervals),
+        entry=build_entry_index(intervals) if build_entry else None,
     )

@@ -118,6 +118,11 @@ extern "C" int repro_prune_sweep(const float* i_u, const float* xs, const float*
                                  float alpha2, int unified, cudaStream_t stream) {
     const int threads = 256;
     const size_t smem = static_cast<size_t>(C) * 8;
+    if (smem > 48 * 1024) {  // beyond the default: opt in (the wrapper refuses past the card's limit)
+        const cudaError_t err = cudaFuncSetAttribute(
+            prune_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
     prune_sweep_kernel<<<B, threads, smem, stream>>>(
         i_u, xs, i_c, d_uc, valid, overlap, status, rep_if, rep_is,
         C, d, m_if, m_is, alpha2, unified);

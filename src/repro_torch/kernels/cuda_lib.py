@@ -26,8 +26,8 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("expand_score.cu", "expand_score_q.cu", "expand_score_pq.cu", "beam_merge.cu",
-           "prune_sweep.cu")
-HEADERS = ("common.cuh",)
+           "prune_sweep.cu", "l2dist.cu", "fused_scan.cu")
+HEADERS = ("common.cuh", "sq_dist_tile.cuh")
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
 BUILD_ROOT = REPO_ROOT / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
@@ -36,7 +36,8 @@ NVCC_FLAGS = (
 )
 
 launches = {"expand_score": 0, "expand_score_bf16": 0, "expand_score_q": 0,
-            "expand_score_pq": 0, "beam_merge": 0, "prune_sweep": 0}
+            "expand_score_pq": 0, "beam_merge": 0, "prune_sweep": 0,
+            "pairwise_sq_dist": 0, "filtered_topk": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,6 +51,10 @@ _SIGNATURES = {
     "repro_beam_merge": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "repro_prune_sweep": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _F, _I, _P),
+    "repro_pairwise_sq_dist": (_P, _P, _P, _I, _I, _I, _P),
+    "repro_pairwise_sq_dist_bf16": (_P, _P, _P, _I, _I, _I, _P),
+    "repro_filtered_topk": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "repro_filtered_topk_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -11,6 +11,7 @@ from __future__ import annotations
 from repro_torch.kernels import beam_merge as beam_merge_mod
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels import expand_score as expand_score_mod
+from repro_torch.kernels import fused_scan, l2dist
 from repro_torch.kernels import prune_sweep as prune_sweep_mod
 from repro_torch.kernels.util import resolve_backend
 
@@ -19,12 +20,38 @@ launches = cuda_lib.launches
 reset_launches = cuda_lib.reset_launches
 
 
+def pairwise_sq_dist(q, x, *, backend: str | None = None):
+    """``(nq, d) × (nx, d) → (nq, nx)`` squared L2 distances, float32 out;
+    ``q`` and ``x`` are float32 or bfloat16."""
+    if resolve_backend(backend, x) == "cuda":
+        return l2dist.pairwise_sq_dist_cuda(q, x)
+    return l2dist.pairwise_sq_dist_torch(q, x)
+
+
+def filtered_topk(q, x, obj_int, q_int, *, is_filter: bool, k: int,
+                  backend: str | None = None):
+    """Interval predicate, distances and exact top-k in one corpus pass:
+    ``(values (nq, k) f32, ids (nq, k) int32)``, ascending under
+    ``(distance, id)``, ``+inf``/``-1`` where fewer than ``k`` objects pass.
+    ``is_filter=True`` keeps ``obj ⊆ q`` (IF/RF), ``False`` keeps
+    ``obj ⊇ q`` (IS/RS); ``k`` is at most ``fused_scan.MAX_K``."""
+    fn = fused_scan.filtered_topk_cuda if resolve_backend(backend, x) == "cuda" \
+        else fused_scan.filtered_topk_torch
+    return fn(q, x, obj_int, q_int, is_filter=is_filter, k=k)
+
+
 def expand_score(x, idx, q, *, backend: str | None = None):
     """Squared L2 between ``q[b]`` and ``x[idx[b, c]]`` (``+inf`` where
     ``idx < 0``); ``x`` is float32 or bfloat16."""
     if resolve_backend(backend, x) == "cuda":
         return expand_score_mod.expand_score_cuda(x, idx, q)
     return expand_score_mod.expand_score_torch(x, idx, q)
+
+
+def gather_sq_dist(x, idx, q, *, backend: str | None = None):
+    """:func:`expand_score` under its historical name (the reference's
+    absorbed ``kernels/gather_dist.py``)."""
+    return expand_score(x, idx, q, backend=backend)
 
 
 def pq_lut(plane, q):

@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.core import intervals as iv
 from repro_torch.kernels import cuda_lib
-from repro_torch.kernels.expand_score import sq_dist_fixed_order
+from repro_torch.kernels.expand_score import MAX_SHARED_BYTES, sq_dist_fixed_order
 
 
 def cand_row_dist(xs: torch.Tensor, t: int) -> torch.Tensor:
@@ -107,8 +107,13 @@ def prune_sweep_torch(i_u, xs, i_c, d_uc, valid, overlap, *, m_if, m_is, alpha, 
 
 def prune_sweep_cuda(i_u, xs, i_c, d_uc, valid, overlap, *, m_if, m_is, alpha, unified):
     """CUDA kernel: one block per row runs the scan with its state in
-    shared memory.  Masks cross into C as int32."""
+    shared memory (8 bytes a candidate, so ``C`` is at most 29,056 on an
+    H100; ``build_exact`` runs it at ``C = n``).  Masks cross into C as
+    int32."""
     B, C, d = xs.shape
+    if C * 8 > MAX_SHARED_BYTES:
+        raise ValueError(f"prune_sweep: C = {C} candidates need {C * 8} bytes of shared "
+                         f"memory a block, above the {MAX_SHARED_BYTES} an H100 block may use")
     cuda_lib.require(i_u, torch.float32, (B, 2), "prune_sweep i_u")
     cuda_lib.require(xs, torch.float32, (B, C, d), "prune_sweep xs")
     cuda_lib.require(i_c, torch.float32, (B, C, 2), "prune_sweep i_c")

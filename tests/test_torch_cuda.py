@@ -234,11 +234,103 @@ def test_prune_sweep_grid_ties(dev):
                    ops.prune_sweep(*case, backend="torch", **kw))
 
 
+def test_prune_sweep_above_default_shared_memory(dev):
+    """C = 7,000 needs 56,000 bytes of shared memory a block, past the 48 KB
+    that needs no opt-in (build_exact at n = 7,000); past the card's limit
+    the wrapper refuses."""
+    case = prune_case(dev, 2, 7000, 4, seed=13)
+    kw = dict(m_if=7000, m_is=7000, alpha=1.0, unified=True)
+    assert_bitwise(ops.prune_sweep(*case, backend="cuda", **kw),
+                   ops.prune_sweep(*case, backend="torch", **kw))
+    big = prune_case(dev, 1, 29_057, 1, seed=14)
+    with pytest.raises(ValueError):
+        ops.prune_sweep(*big, backend="cuda", **kw)
+
+
 def test_prune_sweep_main_shape(dev):
     case = prune_case(dev, 1024, 96, 128, seed=11)
     kw = dict(m_if=32, m_is=32, alpha=1.0, unified=True)
     assert_bitwise(ops.prune_sweep(*case, backend="cuda", **kw),
                    ops.prune_sweep(*case, backend="torch", **kw))
+
+
+def scan_case(dev, nq, nx, d, *, seed=0, integer=False, dtype=torch.float32):
+    """Queries, corpus and intervals for the two scan kernels.  Integer data
+    repeats the first half of the corpus rows (exact ties); every fifth
+    query window is [2, 3], which no object passes in either direction."""
+    rng = np.random.default_rng(seed)
+    if integer:
+        x = rng.integers(-3, 4, (nx, d)).astype(np.float32)
+        x[nx // 2 :] = x[: nx - nx // 2]
+        q = rng.integers(-3, 4, (nq, d)).astype(np.float32)
+        oi = np.sort(rng.choice([0.0, 0.25, 0.5, 0.75, 1.0], size=(nx, 2)), axis=1)
+    else:
+        x = rng.normal(size=(nx, d)).astype(np.float32)
+        q = rng.normal(size=(nq, d)).astype(np.float32)
+        oi = np.sort(rng.uniform(size=(nx, 2)), axis=1)
+    c = rng.uniform(size=(nq, 1))
+    qi = np.concatenate([np.maximum(c - 0.35, 0), np.minimum(c + 0.35, 1)], axis=1)
+    qi[::5] = (2.0, 3.0)
+    t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=dev)
+    return t(q, dtype), t(x, dtype), t(oi), t(qi)
+
+
+@pytest.mark.parametrize("nq,nx,d", [(3, 5, 7), (17, 33, 17), (130, 257, 96),
+                                     (64, 4096, 128), (129, 1000, 200)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pairwise_sq_dist_matches_plain(dev, nq, nx, d, dtype):
+    q, x, _, _ = scan_case(dev, nq, nx, d, seed=nq + nx + d, dtype=dtype)
+    assert_bitwise([ops.pairwise_sq_dist(q, x, backend="cuda")],
+                   [ops.pairwise_sq_dist(q, x, backend="torch")])
+
+
+@pytest.mark.parametrize("nq,nx,d", [(5, 100, 7), (13, 500, 17), (70, 999, 96),
+                                     (65, 3000, 128), (4, 300, 200), (3, 40, 8)])
+@pytest.mark.parametrize("k", [1, 10, 64])
+@pytest.mark.parametrize("is_filter", [True, False])
+@pytest.mark.parametrize("integer", [False, True])
+def test_filtered_topk_matches_plain(dev, nq, nx, d, k, is_filter, integer):
+    """Ragged shapes, k > nx (nx = 40, k = 64), all-excluded rows and, on
+    integer data, exact ties between repeated rows."""
+    case = scan_case(dev, nq, nx, d, seed=nq * nx + d, integer=integer)
+    kw = dict(is_filter=is_filter, k=k)
+    got = ops.filtered_topk(*case, backend="cuda", **kw)
+    want = ops.filtered_topk(*case, backend="torch", **kw)
+    torch.cuda.synchronize()
+    assert_bitwise(got, want)
+    assert bool((got[1][::5] == -1).all())
+
+
+def test_filtered_topk_bf16_and_large_k(dev):
+    case = scan_case(dev, 33, 2000, 24, seed=3, integer=True, dtype=torch.bfloat16)
+    for k in (200, 256):
+        assert_bitwise(ops.filtered_topk(*case, is_filter=False, k=k, backend="cuda"),
+                       ops.filtered_topk(*case, is_filter=False, k=k, backend="torch"))
+    with pytest.raises(ValueError):
+        ops.filtered_topk(*case, is_filter=False, k=257, backend="cuda")
+
+
+def test_filtered_topk_main_shape(dev):
+    """1,000 queries against 200,000 rows at d = 128 (many corpus ranges a
+    query tile, so the merge kernel folds many lists)."""
+    case = scan_case(dev, 1000, 200_000, 128, seed=21)
+    assert_bitwise(ops.filtered_topk(*case, is_filter=True, k=10, backend="cuda"),
+                   ops.filtered_topk(*case, is_filter=True, k=10, backend="torch"))
+
+
+def test_build_exact_prune_backends_bitwise(dev):
+    from repro_torch.core.exact import build_exact
+
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(300, 16)).astype(np.float32)
+    ints = np.sort(rng.uniform(size=(300, 2)), axis=1).astype(np.float32)
+    mask = rng.uniform(size=300) < 0.7
+    for unified in (True, False):
+        for node_mask in (None, mask):
+            kw = dict(unified=unified, node_mask=node_mask, device=dev)
+            g_cuda = build_exact(x, ints, backend="cuda", **kw)
+            g_torch = build_exact(x, ints, backend="torch", **kw)
+            assert_bitwise([g_cuda.nbrs, g_cuda.status], [g_torch.nbrs, g_torch.status])
 
 
 def test_launch_counters_count_kernel_launches(dev):
@@ -255,6 +347,14 @@ def test_launch_counters_count_kernel_launches(dev):
         ops.expand_score_plane(plane, idx, q, backend="cuda")
         ops.expand_score_plane(plane, idx, q, backend="torch")
         assert ops.launches[f"expand_score_{'q' if tag == 'int8' else 'pq'}"] == 1
+    q, x, oi, qi = scan_case(dev, 5, 50, 8)
+    for backend in ("cuda", "torch"):
+        ops.pairwise_sq_dist(q, x, backend=backend)
+        ops.filtered_topk(q, x, oi, qi, is_filter=True, k=3, backend=backend)
+    ops.gather_sq_dist(x, idx[:, :2].clamp(max=49).contiguous(), q[:4].contiguous(),
+                       backend="cuda")
+    assert ops.launches["pairwise_sq_dist"] == 1 and ops.launches["filtered_topk"] == 1
+    assert ops.launches["expand_score"] == 2
 
 
 def test_cuda_backend_rejects_cpu_tensors():
