@@ -40,7 +40,10 @@ the script exits non-zero without printing a result):
    50,000-row index: mean recall@10 ≥ half of the f32 plane's;
 6. the paper-table bench path at full width, on phase 3's corpus, config
    and index: (a) ``pairwise_sq_dist`` at 10,000 queries × 65,536 corpus
-   rows × 128, f32 and bf16, bitwise against its plain version, bf16 and
+   rows × 128, f32 and bf16, within its stated bound of its plain version
+   (``|kernel − plain| ≤ (d + 4)·2⁻²³·(‖q‖² + ‖x‖²)``: the product runs on
+   the tensor cores, 3×TF32 for f32) with the largest error over the norms
+   printed, and bitwise on integer data at 1,000 × 8,192 × 128; bf16 and
    ``torch.cdist`` timed; (b) ``filtered_topk`` (k = 10, IF and IS,
    uniform windows) bitwise against its plain version on 1,000 queries
    against the whole 1M corpus and at a ragged small shape, ``brute_force``
@@ -90,6 +93,9 @@ K_SCAN = 10
 N_EXACT = 1_000                # rows of the build_exact check
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
+PEAK_TF32_PER_S = 495e12       # H100 SXM TF32 on the tensor cores, dense
+PEAK_BF16_PER_S = 989e12       # H100 SXM bf16 on the tensor cores, dense
+N_L2_INT = (1_000, 8_192)      # queries x corpus rows of the integer-data bitwise check
 KERNELS = {
     "expand_score": ("src/repro_torch/kernels/csrc/expand_score.cu",
                      "src/repro/kernels/expand_score.py:63"),
@@ -108,6 +114,18 @@ KERNELS = {
     "filtered_topk": ("src/repro_torch/kernels/csrc/fused_scan.cu",
                       "src/repro/kernels/fused_scan.py:87"),
 }
+
+# How each kernel is held to its plain version: bitwise, or (the tensor-core
+# product of pairwise_sq_dist, 3xTF32) within a stated bound, and bitwise on
+# small-integer data.
+CHECKED = {name: dict(bitwise=True) for name in KERNELS}
+CHECKED["pairwise_sq_dist"] = dict(
+    bitwise=False, bitwise_on_integer_data=True,
+    tolerance="|kernel - plain| <= (d + 4) * 2^-23 * (|q|^2 + |x|^2) elementwise")
+
+
+# further keys a kernel's row carries into the kernels line where it has them
+EXTRA_KEYS = ("bound_simt_ms", "bound_simt_by", "bf16_ms", "bf16_bound_ms", "bf16_bound_by")
 
 
 def emit(**obj) -> None:
@@ -154,10 +172,31 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float, peak: float = PEAK_FP32_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FP32_PER_S * 1e3
+    t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def l2dist_within_bound(got, want, q, x, what: str) -> dict:
+    """Check ``|kernel − plain| ≤ (d + 4)·2⁻²³·(‖q‖² + ‖x‖²)`` elementwise
+    (``l2dist.tolerance``, the stated bound of the tensor-core product), a
+    block of query rows at a time with the norms folded once; returns the
+    bound's factor, the largest ``|kernel − plain| / (‖q‖² + ‖x‖²)`` and the
+    largest ``|kernel − plain|``."""
+    from repro_torch.kernels.l2dist import tolerance_terms
+
+    factor, qn, xn = tolerance_terms(q, x)
+    qn, xn = qn.double(), xn.double()
+    worst, worst_abs = 0.0, 0.0
+    for r in range(0, got.shape[0], 1000):
+        err = (got[r : r + 1000].double() - want[r : r + 1000].double()).abs()
+        norms = qn[r : r + 1000, None] + xn[None, :]
+        check(bool((err <= factor * norms).all()),
+              f"{what}: kernel outside (d + 4)·2^-23·(|q|² + |x|²) of its plain version")
+        worst = max(worst, float((err / norms.clamp_min(1e-30)).max()))
+        worst_abs = max(worst_abs, float(err.max()))
+    return dict(factor=factor, max_err_over_norms=worst, max_abs_err=worst_abs)
 
 
 # ----------------------------------------------------------------- phases
@@ -308,7 +347,7 @@ def phase2_kernels(dev) -> dict:
         max_abs_err=max(max_abs_err(a, b) for a, b in zip(got, want)),
         shape=dict(B=B, C=C, d=d, pairs=pairs))
     for name, r in rows.items():
-        emit(kernel=name, bitwise=True, kernel_ms=r["ms"], plain_ms=r["plain_ms"],
+        emit(kernel=name, **CHECKED[name], kernel_ms=r["ms"], plain_ms=r["plain_ms"],
              library_ms=r["library_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
              shape=r["shape"])
     return rows
@@ -610,28 +649,43 @@ def phase6_bench(dev, main) -> tuple[dict, dict]:
     nq = qv.shape[0]
     rows = {}
 
-    # (a) pairwise_sq_dist, f32 and bf16
+    # (a) pairwise_sq_dist, f32 and bf16, within the stated bound; bitwise
+    # on integer-valued data
     xl = x[:N_L2]
     nx = xl.shape[0]
-    got = ops.pairwise_sq_dist(qv, xl, backend="cuda")
-    want = ops.pairwise_sq_dist(qv, xl, backend="torch")
-    torch.cuda.synchronize()
-    check(bits_equal(got, want), "pairwise_sq_dist kernel != plain version (f32)")
-    err = max_abs_err(got, want)
-    del got, want
+    ratio = {}
+    for tag, (qa, xa) in (("f32", (qv, xl)), ("bf16", (qv.to(torch.bfloat16), xl.to(torch.bfloat16)))):
+        got = ops.pairwise_sq_dist(qa, xa, backend="cuda")
+        want = ops.pairwise_sq_dist(qa, xa, backend="torch")
+        torch.cuda.synchronize()
+        ratio[tag] = l2dist_within_bound(got, want, qa, xa, f"pairwise_sq_dist ({tag})")
+        del got, want
+    gi = torch.Generator(device=dev).manual_seed(77)
+    qi8, xi8 = (torch.randint(-8, 9, (m, d), generator=gi, device=dev).float() for m in N_L2_INT)
+    for dt in (torch.float32, torch.bfloat16):
+        got = ops.pairwise_sq_dist(qi8.to(dt), xi8.to(dt), backend="cuda")
+        want = ops.pairwise_sq_dist(qi8.to(dt), xi8.to(dt), backend="torch")
+        torch.cuda.synchronize()
+        check(bits_equal(got, want), f"pairwise_sq_dist kernel != plain version on integer data ({dt})")
+    del got, want, qi8, xi8
+    emit(phase=6, pairwise_sq_dist_max_err_over_norms={
+             t: r["max_err_over_norms"] for t, r in ratio.items()},
+         bound_over_norms=ratio["f32"]["factor"], integer_bitwise=dict(shape=N_L2_INT + (d,)))
     qb, xb = qv.to(torch.bfloat16), xl.to(torch.bfloat16)
-    got = ops.pairwise_sq_dist(qb, xb, backend="cuda")
-    want = ops.pairwise_sq_dist(qb, xb, backend="torch")
-    torch.cuda.synchronize()
-    check(bits_equal(got, want), "pairwise_sq_dist kernel != plain version (bf16)")
-    err = max(err, max_abs_err(got, want))
-    del got, want
-    b_ms, b_by = bound((nq + nx) * d * 4 + nq * nx * 4, 2 * nq * nx * d + 3 * nq * nx)
+    # bound_ms is the tightest the card allows an fp32-accurate product:
+    # 3xTF32 on the tensor cores; the fp32 SIMT bound is kept beside it
+    simt_ms, simt_by = bound((nq + nx) * d * 4 + nq * nx * 4, 2 * nq * nx * d + 3 * nq * nx)
+    tc_ms, tc_by = bound((nq + nx) * d * 4 + nq * nx * 4, 3 * 2 * nq * nx * d, PEAK_TF32_PER_S)
+    bf_ms, bf_by = bound((nq + nx) * d * 2 + nq * nx * 4, 2 * nq * nx * d, PEAK_BF16_PER_S)
     rows["pairwise_sq_dist"] = dict(
         bf16_ms=cuda_ms(lambda: ops.pairwise_sq_dist(qb, xb, backend="cuda"), reps=10),
         library_ms=cuda_ms(lambda: torch.cdist(qv, xl), reps=10),
-        library="torch.cdist (adds a square root)", bound_ms=b_ms, bound_by=b_by,
-        max_abs_err=err, shape=dict(nq=nq, nx=nx, d=d))
+        library="torch.cdist (adds a square root)", bound_ms=tc_ms, bound_by=tc_by,
+        bound_simt_ms=simt_ms, bound_simt_by=simt_by,
+        bf16_bound_ms=bf_ms, bf16_bound_by=bf_by,
+        max_abs_err=max(r["max_abs_err"] for r in ratio.values()),
+        max_err_over_norms={t: r["max_err_over_norms"] for t, r in ratio.items()},
+        shape=dict(nq=nq, nx=nx, d=d))
     del qb, xb
 
     # (b) filtered_topk: bitwise on 1,000 queries against the whole corpus
@@ -692,8 +746,8 @@ def phase6_bench(dev, main) -> tuple[dict, dict]:
     for name, row in (("pairwise_sq_dist", "kernel_l2dist"), ("filtered_topk", "kernel_fusedscan")):
         rows[name].update(ms=1e3 * by_name[f"{row}_cuda"]["seconds"],
                           plain_ms=1e3 * by_name[f"{row}_torch_plain"]["seconds"])
-        emit(phase=6, kernel=name, bitwise=True, **{k: v for k, v in rows[name].items()
-                                                    if k != "max_abs_err"})
+        emit(phase=6, kernel=name, **CHECKED[name], **{k: v for k, v in rows[name].items()
+                                                       if k != "max_abs_err"})
     check(by_name["ifann_prefilter_exact"]["recall"] == 1.0, "pre-filter recall != 1")
     pf, hp = b.postfilter_index(), b.hipng_index()
     for what, res in (("post-filter", pf.search(qv, qi, sem=Semantics.IF, ef=128, k=10,
@@ -766,9 +820,10 @@ def main() -> int:
         path = next(p for p in PATH_KERNELS if name in PATH_KERNELS[p])
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=path_launches[path][name], bitwise=True, max_abs_err=r["max_abs_err"],
+            launches=path_launches[path][name], **CHECKED[name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            **{k: r[k] for k in EXTRA_KEYS if k in r}))
     emit(seconds=time.perf_counter() - t_start, card=smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -27,7 +27,7 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("expand_score.cu", "expand_score_q.cu", "expand_score_pq.cu", "beam_merge.cu",
            "prune_sweep.cu", "l2dist.cu", "fused_scan.cu")
-HEADERS = ("common.cuh", "sq_dist_tile.cuh")
+HEADERS = ("common.cuh", "sq_dist_tile.cuh", "mma_tile.cuh")
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
 BUILD_ROOT = REPO_ROOT / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
@@ -50,12 +50,14 @@ _SIGNATURES = {
     "repro_expand_score_pq": (_P, _P, _P, _P, _L, _I, _I, _I, _P),
     "repro_beam_merge": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "repro_prune_sweep": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _I, _F, _I, _P),
+                          _I, _I, _I, _I, _I, _F, _I, _I, _P),
+    "repro_prune_sweep_smem": (_I, _I, _I),
     "repro_pairwise_sq_dist": (_P, _P, _P, _I, _I, _I, _P),
     "repro_pairwise_sq_dist_bf16": (_P, _P, _P, _I, _I, _I, _P),
     "repro_filtered_topk": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "repro_filtered_topk_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
+_RESTYPES = {"repro_prune_sweep_smem": _L}   # every other entry returns a cudaError_t
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -134,7 +136,7 @@ def lib() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             _lib = handle
         return _lib
 

@@ -5,8 +5,10 @@ interval passes the predicate (``is_filter=True``, IF/RF: the object lies
 within the query window; ``False``, IS/RS: the object covers it), ascending
 under the total order ``(distance, id)`` and padded with ``(+inf, -1)``: the
 paper's pre-filter scan and the ground truth, with no ``(nq, nx)`` matrix in
-device memory.  Distances are those of ``kernels/l2dist.py``, folded in the
-same fixed order.
+device memory.  Distances are those of ``kernels/l2dist.py``'s plain
+version, folded in the same fixed order: the CUDA kernel computes them on
+the SIMT tile of ``csrc/sq_dist_tile.cuh``, not on ``pairwise_sq_dist``'s
+tensor-core tile.
 
 The CUDA kernel (``csrc/fused_scan.cu``) streams the corpus through shared
 memory a 128-row tile at a time and keeps each query's running top-k there;

@@ -1,17 +1,34 @@
 """Pairwise squared-L2 distances, ``(nq, d) × (nx, d) → (nq, nx)``.
 
 ``‖q − x‖² = max((‖q‖² + ‖x‖²) − 2·qᵀx, 0)`` in float32 for float32 or
-bfloat16 rows.  The CUDA kernel (``csrc/l2dist.cu``) computes it tile by
-tile on the SIMT cores; :func:`pairwise_sq_dist_torch` is its plain version.
-Both fold each norm and each inner product over ``d`` from ``k = 0``
-upwards, starting from ``+0``, one separately rounded multiply and add per
-``k`` (:func:`fold_sq_norms`, :func:`fold_inner`), so they agree bitwise on
-any input.  The plain version never calls ``torch.matmul``: a library
-product picks its own order of the sum.  Against the reference (XLA's sums,
-a norm partial per 512-wide ``d`` tile) they agree to rounding, and bitwise
-on small integer data, where every sum is exact.
+bfloat16 rows.  :func:`pairwise_sq_dist_torch` is the plain version: it
+folds each norm and each inner product over ``d`` from ``k = 0`` upwards,
+starting from ``+0``, one separately rounded multiply and add per ``k``
+(:func:`fold_sq_norms`, :func:`fold_inner`), and never calls
+``torch.matmul``, whose sum order is the library's.
 
-The same fold is the distance tile of ``kernels/fused_scan.py``.
+The CUDA kernel (``csrc/l2dist.cu``) runs the inner product on the tensor
+cores, as the reference's Pallas kernel runs it on the TPU's matrix unit:
+f32 rows through 3×TF32 (each operand split into a TF32 part and a TF32
+remainder, three products accumulated in f32), this card's fp32-accurate
+form of a tensor-core product; bf16 rows through one bf16 product, exact
+in f32.  Its norms are folded in the plain version's order and are
+bitwise the plain version's; its inner products are summed in the tensor
+cores' order.  So the kernel is held to a stated bound, not to bitwise
+equality: elementwise
+
+    |kernel − plain| ≤ (d + 4) · 2⁻²³ · (‖q_i‖² + ‖x_j‖²)
+
+(:func:`tolerance`: the ≈ 2⁻²¹ relative error of 3×TF32 plus ``d`` f32
+roundings of either sum, over ``Σ|q_k x_k| ≤ (‖q‖² + ‖x‖²)/2``, times 2 for
+the ``−2·ip``).  On integer-valued data with ``|v| ≤ 8`` and ``d ≤ 256``
+every product and partial sum is an integer below 2²⁴, the remainders are
+0, and the two are bitwise equal.  Against the reference (XLA's sums, a
+norm partial per 512-wide ``d`` tile) the plain version agrees to rounding,
+and bitwise on small integer data, where every sum is exact.
+
+``kernels/fused_scan.py`` keeps the SIMT distance tile, bitwise its plain
+version's fold.
 """
 from __future__ import annotations
 
@@ -77,10 +94,27 @@ def pairwise_sq_dist_torch(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def tolerance_terms(q: torch.Tensor, x: torch.Tensor) -> tuple[float, torch.Tensor, torch.Tensor]:
+    """The terms of :func:`tolerance`: the factor ``(d + 4) · 2⁻²³`` and the
+    folded norms ``‖q_i‖²``, ``‖x_j‖²``, for a caller that takes the bound a
+    block of rows at a time."""
+    q, x = operands(q, x, "pairwise_sq_dist")
+    qn, xn = fold_sq_norms(q.to(torch.float32)), fold_sq_norms(x.to(torch.float32))
+    return (q.shape[1] + 4) * 2.0**-23, qn, xn
+
+
+def tolerance(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The elementwise bound of ``|kernel − plain|``, ``(nq, nx)``:
+    ``(d + 4) · 2⁻²³ · (‖q_i‖² + ‖x_j‖²)`` with the folded norms."""
+    factor, qn, xn = tolerance_terms(q, x)
+    return factor * (qn[:, None] + xn[None, :])
+
+
 def pairwise_sq_dist_cuda(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """CUDA kernel: one block of 256 threads per ``(128, 128)`` output tile,
-    16-column slices of both operands staged in shared memory, 8 × 8 outputs
-    a thread; bf16 rows are widened in registers."""
+    128-byte K-slices of both operands staged through two shared-memory
+    stages, the product on the tensor cores (3×TF32 for f32, one bf16
+    product for bf16), the norms folded in the plain version's order."""
     q, x = operands(q, x, "pairwise_sq_dist")
     (nq, d), nx = q.shape, x.shape[0]
     cuda_lib.require(q, q.dtype, (nq, d), "pairwise_sq_dist q")

@@ -8,7 +8,9 @@ each scan step recomputes the distance row ``δ²(t, ·)`` and the Φ rows for
 the current ``t`` only.
 
 The CUDA kernel (``csrc/prune_sweep.cu``) runs the scan per row in one
-block; the plain version :func:`sweep_block` runs it over the whole batch as
+block, in chunks of 32 candidates whose pairs are computed in parallel
+ahead of a short sequential pass over bitmasks; the plain version
+:func:`sweep_block` runs it candidate by candidate over the whole batch as
 tensor ops.  Every float that enters a comparison is a square-difference sum
 in the kernels' fixed order (:func:`sq_dist_fixed_order`), and everything
 else is boolean and integer algebra, so the two agree bitwise on any input.
@@ -106,14 +108,12 @@ def prune_sweep_torch(i_u, xs, i_c, d_uc, valid, overlap, *, m_if, m_is, alpha, 
 
 
 def prune_sweep_cuda(i_u, xs, i_c, d_uc, valid, overlap, *, m_if, m_is, alpha, unified):
-    """CUDA kernel: one block per row runs the scan with its state in
-    shared memory (8 bytes a candidate, so ``C`` is at most 29,056 on an
-    H100; ``build_exact`` runs it at ``C = n``).  Masks cross into C as
-    int32."""
+    """CUDA kernel: one block per row scans the candidates in chunks of 32.
+    It stages the row (vectors, intervals, ``d_uc``) in shared memory where
+    that fits and reads it through L2 otherwise; the state it always keeps
+    there is 4.5 bytes a candidate, so ``C`` is at most 51,536 on an H100
+    (``build_exact`` runs it at ``C = n``).  Masks cross into C as int32."""
     B, C, d = xs.shape
-    if C * 8 > MAX_SHARED_BYTES:
-        raise ValueError(f"prune_sweep: C = {C} candidates need {C * 8} bytes of shared "
-                         f"memory a block, above the {MAX_SHARED_BYTES} an H100 block may use")
     cuda_lib.require(i_u, torch.float32, (B, 2), "prune_sweep i_u")
     cuda_lib.require(xs, torch.float32, (B, C, d), "prune_sweep xs")
     cuda_lib.require(i_c, torch.float32, (B, C, 2), "prune_sweep i_c")
@@ -122,14 +122,19 @@ def prune_sweep_cuda(i_u, xs, i_c, d_uc, valid, overlap, *, m_if, m_is, alpha, u
     overlap = overlap.to(torch.int32).contiguous()
     cuda_lib.require(valid, torch.int32, (B, C), "prune_sweep valid")
     cuda_lib.require(overlap, torch.int32, (B, C), "prune_sweep overlap")
+    lib = cuda_lib.lib()
+    stage = int(lib.repro_prune_sweep_smem(C, d, 1) <= MAX_SHARED_BYTES)
+    need = lib.repro_prune_sweep_smem(C, d, stage)
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(f"prune_sweep: C = {C} candidates need {need} bytes of shared "
+                         f"memory a block, above the {MAX_SHARED_BYTES} an H100 block may use")
     outs = [torch.empty((B, C), dtype=torch.int32, device=xs.device) for _ in range(3)]
     if B * C == 0:
         return tuple(outs)
-    lib = cuda_lib.lib()
     err = lib.repro_prune_sweep(
         i_u.data_ptr(), xs.data_ptr(), i_c.data_ptr(), d_uc.data_ptr(),
         valid.data_ptr(), overlap.data_ptr(), *[o.data_ptr() for o in outs],
-        B, C, d, int(m_if), int(m_is), _alpha2(alpha), int(bool(unified)),
+        B, C, d, int(m_if), int(m_is), _alpha2(alpha), int(bool(unified)), stage,
         cuda_lib.stream_ptr(xs))
     cuda_lib.check(err, "prune_sweep")
     cuda_lib.launches["prune_sweep"] += 1

@@ -73,7 +73,13 @@ def resolve_backend(backend: str | None, t: torch.Tensor) -> str:
 
 
 def no_tf32() -> None:
-    """Keep float32 products in full float32: TF32 keeps about three decimal
-    digits, which would move distances off the reference's."""
+    """Keep the library's float32 products in full float32: TF32 keeps about
+    three decimal digits, which would move distances off the reference's.
+
+    The ``pairwise_sq_dist`` kernel does issue TF32 instructions, as 3×TF32
+    (a TF32 part and a TF32 remainder of each operand, three products
+    summed in f32), which keeps fp32's accuracy; it is held to a stated
+    bound against its plain version (``kernels/l2dist.py``).  No kernel
+    uses a single TF32 product."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -1,7 +1,9 @@
 """Each CUDA kernel of the port against its plain PyTorch version, on the card.
 
 Bitwise (floats compared as bit patterns), at small shapes and at the main
-path's shapes.  Every test decides inside itself whether a card is present
+path's shapes; ``pairwise_sq_dist``, whose product runs on the tensor cores
+(3×TF32), within its stated bound (``kernels.l2dist.tolerance``) and bitwise
+on small-integer data.  Every test decides inside itself whether a card is present
 and skips without one.  This file imports neither JAX nor the reference
 package, so it runs on a machine with only PyTorch:
 
@@ -196,19 +198,23 @@ def test_beam_merge_rejects_non_power_of_two(dev):
         ops.beam_merge(bd[:, :6].contiguous(), bp[:, :6].contiguous(), cd, cp, backend="cuda")
 
 
-def prune_case(dev, B, C, d, *, seed=0, point=False, grid=False, pad_frac=0.2):
+def prune_case(dev, B, C, d, *, seed=0, point=False, grid=False, pad_frac=0.2, d_uc_max=None,
+               spread=1.0):
+    """``d_uc_max`` sets how far ``d(u, ·)`` reaches (small: few geometric
+    witnesses; large, with a small ``spread`` of the vectors: every pair)."""
     rng = np.random.default_rng(seed)
     if grid:
         xs = rng.choice([0.0, 0.5, 1.0, 2.0], size=(B, C, d)).astype(np.float32)
         ends = rng.choice([0.0, 0.25, 0.5, 0.75, 1.0], size=(B, C, 2))
     else:
-        xs = rng.normal(size=(B, C, d)).astype(np.float32)
+        xs = (spread * rng.normal(size=(B, C, d))).astype(np.float32)
         ends = rng.uniform(size=(B, C, 2))
     i_c = np.sort(ends, axis=-1).astype(np.float32)
     if point:
         i_c[..., 1] = i_c[..., 0]
     i_u = np.sort(rng.uniform(size=(B, 2)), axis=-1).astype(np.float32)
-    d_uc = np.sort(rng.uniform(0.1, 4.0 * d, size=(B, C)), axis=-1).astype(np.float32)
+    hi = 4.0 * d if d_uc_max is None else d_uc_max
+    d_uc = np.sort(rng.uniform(0.1 * hi / (4.0 * d), hi, size=(B, C)), axis=-1).astype(np.float32)
     valid = rng.uniform(size=(B, C)) >= pad_frac
     valid[: max(B // 10, 1)] = False                     # some all-pad rows
     d_uc[~valid] = np.inf
@@ -227,6 +233,35 @@ def test_prune_sweep_matches_plain(dev, B, C, d, alpha, unified, point):
                    ops.prune_sweep(*case, backend="torch", **kw))
 
 
+@pytest.mark.parametrize("C", [31, 32, 33, 64, 65, 97])
+@pytest.mark.parametrize("kind", ["gaussian", "budgets", "all_witnessed"])
+@pytest.mark.parametrize("alpha", [1.0, 1.2])
+@pytest.mark.parametrize("unified", [True, False])
+def test_prune_sweep_chunk_edges(dev, C, kind, alpha, unified):
+    """The kernel scans in chunks of 32 candidates: C on both sides of the
+    chunk edges; budgets that run out inside a chunk (m_if = 3, m_is = 1,
+    and few geometric witnesses); rows where every candidate after the
+    first is witnessed (near-equal vectors, d(u, ·) far above them)."""
+    kw = dict(m_if=3, m_is=1) if kind == "budgets" else dict(m_if=C, m_is=C)
+    extra = dict(budgets=dict(d_uc_max=0.5), all_witnessed=dict(d_uc_max=1e4, spread=1e-3))
+    case = prune_case(dev, 9, C, 40, seed=C * 7 + len(kind), pad_frac=0.1,
+                      **extra.get(kind, {}))
+    kw.update(alpha=alpha, unified=unified)
+    got = ops.prune_sweep(*case, backend="cuda", **kw)
+    want = ops.prune_sweep(*case, backend="torch", **kw)
+    assert_bitwise(got, want)
+    status, rep_if = want[0].cpu().numpy(), want[1].cpu().numpy()
+    valid = case[4].cpu().numpy()
+    if kind == "budgets":        # the budget, not a witness, stops most rows
+        assert ((status & 1).sum(axis=1) <= 3).all() and ((status >> 1 & 1).sum(axis=1) <= 1).all()
+        assert ((status & 1).sum(axis=1) == 3).any()
+    if kind == "all_witnessed" and not unified:
+        first = valid.argmax(axis=1)
+        for b in np.flatnonzero(valid.any(axis=1)):
+            later = valid[b] & (np.arange(C) > first[b])
+            assert (rep_if[b][later] == first[b]).all()
+
+
 def test_prune_sweep_grid_ties(dev):
     case = prune_case(dev, 12, 24, 8, seed=7, grid=True)
     kw = dict(m_if=5, m_is=5, alpha=1.0, unified=True)
@@ -235,14 +270,17 @@ def test_prune_sweep_grid_ties(dev):
 
 
 def test_prune_sweep_above_default_shared_memory(dev):
-    """C = 7,000 needs 56,000 bytes of shared memory a block, past the 48 KB
-    that needs no opt-in (build_exact at n = 7,000); past the card's limit
-    the wrapper refuses."""
-    case = prune_case(dev, 2, 7000, 4, seed=13)
+    """Rows too long to stage in shared memory are read through L2
+    (build_exact at n = 7,000); C = 29,057, which the earlier kernel
+    refused, keeps 131,312 bytes of state a block, past the 48 KB that
+    needs no opt-in; past 51,536 candidates, where the 4.5 bytes a
+    candidate of state do not fit, the wrapper refuses."""
     kw = dict(m_if=7000, m_is=7000, alpha=1.0, unified=True)
-    assert_bitwise(ops.prune_sweep(*case, backend="cuda", **kw),
-                   ops.prune_sweep(*case, backend="torch", **kw))
-    big = prune_case(dev, 1, 29_057, 1, seed=14)
+    for rows, C, d, seed in ((2, 7000, 4, 13), (1, 29_057, 1, 57)):
+        case = prune_case(dev, rows, C, d, seed=seed)
+        assert_bitwise(ops.prune_sweep(*case, backend="cuda", **kw),
+                       ops.prune_sweep(*case, backend="torch", **kw))
+    big = prune_case(dev, 1, 51_537, 1, seed=14)
     with pytest.raises(ValueError):
         ops.prune_sweep(*big, backend="cuda", **kw)
 
@@ -275,13 +313,47 @@ def scan_case(dev, nq, nx, d, *, seed=0, integer=False, dtype=torch.float32):
     return t(q, dtype), t(x, dtype), t(oi), t(qi)
 
 
+def assert_within_bound(q, x):
+    """The kernel within ``(d + 4)·2⁻²³·(‖q‖² + ‖x‖²)`` of the plain
+    version, elementwise (the 3×TF32 product sums in another order)."""
+    from repro_torch.kernels.l2dist import tolerance
+
+    got = ops.pairwise_sq_dist(q, x, backend="cuda")
+    want = ops.pairwise_sq_dist(q, x, backend="torch")
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.float32
+    err = (got.double() - want.double()).abs()
+    assert bool((err <= tolerance(q, x).double()).all())
+
+
 @pytest.mark.parametrize("nq,nx,d", [(3, 5, 7), (17, 33, 17), (130, 257, 96),
                                      (64, 4096, 128), (129, 1000, 200)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pairwise_sq_dist_matches_plain(dev, nq, nx, d, dtype):
     q, x, _, _ = scan_case(dev, nq, nx, d, seed=nq + nx + d, dtype=dtype)
+    assert_within_bound(q, x)
+
+
+@pytest.mark.parametrize("nq,nx", [(3, 5), (130, 257), (129, 1001), (256, 384)])
+@pytest.mark.parametrize("d", [7, 96, 128, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pairwise_sq_dist_integer_bitwise(dev, nq, nx, d, dtype):
+    """|v| ≤ 8 integers: the TF32 remainders are 0 and every sum is exact,
+    so the tensor-core product is bitwise the plain fold's."""
+    rng = np.random.default_rng(nq * nx + d)
+    q, x = (torch.as_tensor(rng.integers(-8, 9, (n, d)).astype(np.float32), device=dev).to(dtype)
+            for n in (nq, nx))
     assert_bitwise([ops.pairwise_sq_dist(q, x, backend="cuda")],
                    [ops.pairwise_sq_dist(q, x, backend="torch")])
+
+
+def test_pairwise_sq_dist_unaligned_rows(dev):
+    """Row views that start off a 16-byte boundary take the plain staging
+    path of the kernel."""
+    q, x, _, _ = scan_case(dev, 40, 300, 32, seed=5)
+    shifted = [torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape) for t in (q, x)]
+    assert all(t.is_contiguous() and t.data_ptr() % 16 == 4 for t in shifted)
+    assert_within_bound(*shifted)
 
 
 @pytest.mark.parametrize("nq,nx,d", [(5, 100, 7), (13, 500, 17), (70, 999, 96),

@@ -19,7 +19,7 @@ import torch
 
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_oracles
-from repro_torch.kernels import cuda_lib, ops
+from repro_torch.kernels import cuda_lib, l2dist, ops
 from repro_torch.kernels import ref as port_oracles
 from repro_torch.kernels.fused_scan import MAX_K
 
@@ -101,6 +101,61 @@ def test_pairwise_sq_dist_mixed_dtypes_widen_exactly():
     q, x, _, _ = scan_case(3, 6, 40, 12)
     tq, tx = torch.as_tensor(q), torch.as_tensor(x).to(torch.bfloat16)
     assert_bitwise(ops.pairwise_sq_dist(tq, tx), ops.pairwise_sq_dist(tq, tx.float()))
+
+
+def tf32_rna(a: np.ndarray) -> np.ndarray:
+    """float32 → TF32 (10 mantissa bits), round half away from zero, as
+    ``cvt.rna.tf32.f32``: add half a unit of the 13 dropped bits, mask."""
+    bits = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def sq_dist_3xtf32(q: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """The kernel's arithmetic in numpy: the plain version's folded norms,
+    and an inner product of TF32 parts and TF32 remainders, three products
+    a ``k`` (small·big, big·small, big·big) summed in f32 in that order."""
+    qb, xb = tf32_rna(q), tf32_rna(x)
+    qs, xs = tf32_rna(q - qb), tf32_rna(x - xb)
+    acc = np.zeros((q.shape[0], x.shape[0]), dtype=np.float32)
+    for k in range(q.shape[1]):
+        acc = acc + qs[:, k : k + 1] * xb[None, :, k]
+        acc = acc + qb[:, k : k + 1] * xs[None, :, k]
+        acc = acc + qb[:, k : k + 1] * xb[None, :, k]
+    qn = l2dist.fold_sq_norms(torch.as_tensor(q)).numpy()
+    xn = l2dist.fold_sq_norms(torch.as_tensor(x)).numpy()
+    d = (qn[:, None] + xn[None, :]) - np.float32(2.0) * acc
+    return np.maximum(d, np.float32(0.0))
+
+
+@pytest.mark.parametrize("d", [7, 128, 200])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_3xtf32_arithmetic_within_stated_bound(d, seed):
+    """The bound the card tests hold the kernel to, held to the design's
+    arithmetic: on Gaussian data the emulated 3×TF32 distances stay within
+    ``(d + 4)·2⁻²³·(‖q‖² + ‖x‖²)`` of the plain fold, and use some of it
+    (a TF32 product alone would not stay within it)."""
+    q, x, _, _ = scan_case(seed * 100 + d, 33, 70, d)
+    got = sq_dist_3xtf32(q, x)
+    want = l2dist.pairwise_sq_dist_torch(torch.as_tensor(q), torch.as_tensor(x)).numpy()
+    tol = l2dist.tolerance(torch.as_tensor(q), torch.as_tensor(x)).numpy()
+    err = np.abs(got.astype(np.float64) - want)
+    assert (err <= tol).all(), float((err / tol).max())
+    one_tf32 = np.maximum(
+        l2dist.fold_sq_norms(torch.as_tensor(q)).numpy()[:, None]
+        + l2dist.fold_sq_norms(torch.as_tensor(x)).numpy()[None, :]
+        - 2 * (tf32_rna(q).astype(np.float64) @ tf32_rna(x).astype(np.float64).T), 0)
+    assert (np.abs(one_tf32 - want) > tol).any()
+
+
+@pytest.mark.parametrize("d", [7, 128, 200])
+def test_3xtf32_arithmetic_integer_bitwise(d):
+    """|v| ≤ 8 integers: the remainders are 0 and every sum is exact."""
+    rng = np.random.default_rng(d)
+    q = rng.integers(-8, 9, (9, d)).astype(np.float32)
+    x = rng.integers(-8, 9, (40, d)).astype(np.float32)
+    assert not tf32_rna(q - tf32_rna(q)).any()
+    assert_bitwise(sq_dist_3xtf32(q, x),
+                   l2dist.pairwise_sq_dist_torch(torch.as_tensor(q), torch.as_tensor(x)))
 
 
 # --------------------------------------------------------------- filtered_topk
