@@ -45,9 +45,12 @@ the script exits non-zero without printing a result):
    the tensor cores, 3×TF32 for f32) with the largest error over the norms
    printed, and bitwise on integer data at 1,000 × 8,192 × 128; bf16 and
    ``torch.cdist`` timed; (b) ``filtered_topk`` (k = 10, IF and IS,
-   uniform windows) bitwise against its plain version on 1,000 queries
-   against the whole 1M corpus and at a ragged small shape, ``brute_force``
-   timed on all 10,000 queries; (c) the scan against ``prefilter_search``
+   uniform windows; its product also runs on the tensor cores) within its
+   stated rule of its plain version (``fused_scan.rule_violations``) on
+   1,000 queries against the whole 1M corpus and at a ragged small shape
+   (77 × 3,001, k ∈ {1, 64}), bitwise on integer data at 1,000 × 65,536 ×
+   128, f32 and bf16; its bf16 entry and ``brute_force`` timed on all
+   10,000 queries; (c) the scan against ``prefilter_search``
    on those 1,000 queries; (d) Exp-1 and Exp-4 through ``repro_torch.bench``
    (post-filter and Hi-PNG builds at 1M, IF search of the 10,000 queries,
    the kernel table at these shapes, whose rows give both kernels' times:
@@ -116,12 +119,18 @@ KERNELS = {
 }
 
 # How each kernel is held to its plain version: bitwise, or (the tensor-core
-# product of pairwise_sq_dist, 3xTF32) within a stated bound, and bitwise on
-# small-integer data.
+# products of pairwise_sq_dist and filtered_topk, 3xTF32) within a stated
+# rule, and bitwise on small-integer data.
 CHECKED = {name: dict(bitwise=True) for name in KERNELS}
 CHECKED["pairwise_sq_dist"] = dict(
     bitwise=False, bitwise_on_integer_data=True,
     tolerance="|kernel - plain| <= (d + 4) * 2^-23 * (|q|^2 + |x|^2) elementwise")
+CHECKED["filtered_topk"] = dict(
+    bitwise=False, bitwise_on_integer_data=True,
+    tolerance="with tol_i = (d + 4) * 2^-23 * (|q_i|^2 + max_j |x_j|^2): the +inf pattern "
+              "equal; sorted values within tol_i; ids distinct, passing the predicate, "
+              "their plain distances within tol_i of their values and at most the plain "
+              "k-th value + 2 tol_i (fused_scan.rule_violations)")
 
 
 # further keys a kernel's row carries into the kernels line where it has them
@@ -688,8 +697,10 @@ def phase6_bench(dev, main) -> tuple[dict, dict]:
         shape=dict(nq=nq, nx=nx, d=d))
     del qb, xb
 
-    # (b) filtered_topk: bitwise on 1,000 queries against the whole corpus
-    # and at a ragged small shape
+    # (b) filtered_topk: within its rule on 1,000 queries against the whole
+    # corpus and at a ragged small shape; bitwise on integer-valued data
+    from repro_torch.kernels.fused_scan import rule_violations
+
     qs, qis = qv[:N_PLAIN], qi[:N_PLAIN]
     scan, err = {}, 0.0
     for is_filter in (True, False):
@@ -697,20 +708,45 @@ def phase6_bench(dev, main) -> tuple[dict, dict]:
         got = ops.filtered_topk(qs, x, ints, qis, backend="cuda", **kw)
         want = ops.filtered_topk(qs, x, ints, qis, backend="torch", **kw)
         torch.cuda.synchronize()
-        check(same_topk(got, want), f"filtered_topk kernel != plain version (is_filter={is_filter})")
+        broken = rule_violations(qs, x, ints, qis, got=got, want=want, is_filter=is_filter)
+        check(not broken, f"filtered_topk outside its rule (is_filter={is_filter}): {broken}")
         err = max(err, max_abs_err(got[0], want[0]))
+        small = (qv[:77], x[:3001], ints[:3001], qi[:77])
         for k in (1, 64):
-            small = (qv[:77], x[:3001], ints[:3001], qi[:77])
-            check(same_topk(ops.filtered_topk(*small, is_filter=is_filter, k=k, backend="cuda"),
-                            ops.filtered_topk(*small, is_filter=is_filter, k=k, backend="torch")),
-                  f"filtered_topk kernel != plain version at 77 x 3001, k = {k}")
+            got_s = ops.filtered_topk(*small, is_filter=is_filter, k=k, backend="cuda")
+            want_s = ops.filtered_topk(*small, is_filter=is_filter, k=k, backend="torch")
+            broken = rule_violations(*small, got=got_s, want=want_s, is_filter=is_filter)
+            check(not broken, f"filtered_topk outside its rule at 77 x 3001, k = {k}: {broken}")
         scan[is_filter] = got
-    b_ms, b_by = bound((nq + n) * d * 4 + (nq + n) * 2 * 4 + nq * K_SCAN * 8, 2 * nq * n * d)
+    qi8, xi8 = (torch.randint(-8, 9, (m, d), generator=gi, device=dev).float()
+                for m in (N_PLAIN, N_L2))
+    for dt in (torch.float32, torch.bfloat16):
+        for is_filter in (True, False):
+            case = (qi8.to(dt), xi8.to(dt), ints[:N_L2], qis)
+            kw = dict(is_filter=is_filter, k=K_SCAN)
+            check(same_topk(ops.filtered_topk(*case, backend="cuda", **kw),
+                            ops.filtered_topk(*case, backend="torch", **kw)),
+                  f"filtered_topk kernel != plain version on integer data ({dt}, {is_filter})")
+    del qi8, xi8
+    emit(phase=6, filtered_topk_within_rule=dict(queries=N_PLAIN, nx=n, small=[77, 3001, [1, 64]]),
+         filtered_topk_max_abs_err=err, integer_bitwise=dict(shape=[N_PLAIN, N_L2, d]))
+    # bound_ms: the 3xTF32 product on the tensor cores; the fp32 SIMT bound
+    # and the bf16 entry's beside it
+    io = (nq + n) * 2 * 4 + nq * K_SCAN * 8                 # intervals in, top-k out
+    tc_ms, tc_by = bound((nq + n) * d * 4 + io, 3 * 2 * nq * n * d, PEAK_TF32_PER_S)
+    simt_ms, simt_by = bound((nq + n) * d * 4 + io, 2 * nq * n * d)
+    bf_ms, bf_by = bound((nq + n) * d * 2 + io, 2 * nq * n * d, PEAK_BF16_PER_S)
+    qb, xb = qv.to(torch.bfloat16), x.to(torch.bfloat16)
     rows["filtered_topk"] = dict(
         plain_queries=N_PLAIN, library_ms=None,
         brute_force_ms=cuda_ms(lambda: brute_force(x, ints, qv, qi, sem=Semantics.IF, k=K_SCAN),
                                reps=1, warm=1),
-        bound_ms=b_ms, bound_by=b_by, max_abs_err=err, shape=dict(nq=nq, nx=n, d=d, k=K_SCAN))
+        bf16_ms=cuda_ms(lambda: ops.filtered_topk(qb, xb, ints, qi, is_filter=True, k=K_SCAN,
+                                                  backend="cuda"), reps=3, warm=1),
+        bound_ms=tc_ms, bound_by=tc_by, bound_simt_ms=simt_ms, bound_simt_by=simt_by,
+        bf16_bound_ms=bf_ms, bf16_bound_by=bf_by, max_abs_err=err,
+        shape=dict(nq=nq, nx=n, d=d, k=K_SCAN))
+    del qb, xb
 
     # (c) the scan is the exact pre-filter
     prefilter = {}

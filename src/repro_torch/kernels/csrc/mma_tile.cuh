@@ -1,5 +1,5 @@
 // A squared-L2 tile whose inner product runs on the tensor cores, for
-// l2dist.cu.  (fused_scan.cu keeps the SIMT tile of sq_dist_tile.cuh.)
+// l2dist.cu (pairwise_sq_dist) and fused_scan.cu (filtered_topk).
 //
 // A block of 256 threads (8 warps, 2 x 4) computes the (128, 128) tile
 //     d[r][c] = max((|q_r|^2 + |x_c|^2) - 2 * <q_r, x_c>, 0)
@@ -209,13 +209,15 @@ __device__ __forceinline__ float fold_row(float norm, const uint32_t* __restrict
 // acc[mt][nt][i] is the inner product of query row
 // wm * 64 + mt * 16 + g + 8 * (i / 2) and corpus row wn * 32 + nt * 8 +
 // 2 * tig + i % 2 of the tile (warp = 4 wm + wn, lane = 4 g + tig), and
-// norms[0..127] / norms[128..255] hold the query / corpus rows' norms.
-// smem is SMEM_BYTES of dynamic shared memory; every thread of the block
-// must call it; it ends with a barrier.
+// norms[0..127] / norms[128..255] hold the query / corpus rows' norms; with
+// fold_q false the query rows' norms are not folded and norms[0..127] keep
+// what an earlier call with the same query rows left there.  smem is
+// SMEM_BYTES of dynamic shared memory; every thread of the block must call
+// it; it ends with a barrier.
 template <typename T>
 __device__ __forceinline__ void tile(float (&acc)[4][4][4], const T* __restrict__ q, long long nq,
                                      long long q0, const T* __restrict__ x, long long nx,
-                                     long long x0, int d, uint32_t* smem) {
+                                     long long x0, int d, uint32_t* smem, bool fold_q = true) {
     constexpr int BK = 128 / static_cast<int>(sizeof(T));
     const int tid = threadIdx.x;
     const int warp = tid >> 5, lane = tid & 31;
@@ -233,6 +235,7 @@ __device__ __forceinline__ void tile(float (&acc)[4][4][4], const T* __restrict_
                      && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
     const int nk = (d + BK - 1) / BK;
     float norm = 0.0f;
+    const bool fold = tid >= BM || fold_q;   // warp-uniform
     if (nk > 0) {
         stage(smem, q, nq, d, q0, 0, vec);
         stage(smem + OPERAND_WORDS, x, nx, d, x0, 0, vec);
@@ -250,11 +253,11 @@ __device__ __forceinline__ void tile(float (&acc)[4][4][4], const T* __restrict_
             cp_wait<0>();
         }
         __syncthreads();
-        norm = fold_row<T>(norm, cur + tid * ROW_WORDS);   // q row tid, or x row tid - 128
+        if (fold) norm = fold_row<T>(norm, cur + tid * ROW_WORDS);   // q row tid, or x row tid - 128
         mma_slice<T>(acc, cur, cur + OPERAND_WORDS, wm, wn, g, tig);
         __syncthreads();
     }
-    norms[tid] = norm;
+    if (fold) norms[tid] = norm;
     __syncthreads();
 }
 

@@ -1,12 +1,13 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 The sources in ``csrc/`` have a plain C interface.  At first use each
-``.cu`` is compiled by its own ``nvcc`` (all started together) for
+``.cu`` there is compiled by its own ``nvcc`` (all started together) for
 ``sm_90a`` and the objects are linked into one shared library under
-``build/repro_torch_kernels/<hash of the sources>/`` in the checkout, which
-is then loaded with ``ctypes``.  A later process finds the library by the
-same hash and does not build again.  Nothing here runs at import time: this
-module must import on a machine without ``nvcc`` or a card.
+``build/repro_torch_kernels/<hash of the .cu and .cuh files>/`` in the
+checkout, which is then loaded with ``ctypes``.  A later process finds the
+library by the same hash and does not build again.  Nothing here runs at
+import time: this module must import on a machine without ``nvcc`` or a
+card.
 
 Every kernel wrapper adds one to its entry in :data:`launches` where it
 launches its kernel, and nowhere else, so a run can show that its main path
@@ -25,9 +26,6 @@ import threading
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("expand_score.cu", "expand_score_q.cu", "expand_score_pq.cu", "beam_merge.cu",
-           "prune_sweep.cu", "l2dist.cu", "fused_scan.cu")
-HEADERS = ("common.cuh", "sq_dist_tile.cuh", "mma_tile.cuh")
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
 BUILD_ROOT = REPO_ROOT / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
@@ -69,11 +67,11 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def source_hash() -> str:
+def source_hash(csrc: pathlib.Path = CSRC) -> str:
     h = hashlib.sha256()
-    for name in SOURCES + HEADERS:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
@@ -85,26 +83,31 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build() -> pathlib.Path:
-    """Compile the sources into the hashed build directory (if not there
-    yet) and return the library's path.  Records the build seconds and the
-    ``-Xptxas -v`` report in :data:`build_info`."""
-    out_dir = BUILD_ROOT / source_hash()
+def build(csrc: pathlib.Path = CSRC, root: pathlib.Path = BUILD_ROOT,
+          info: dict | None = None) -> pathlib.Path:
+    """Compile the ``.cu`` files of ``csrc`` into the hashed build directory
+    under ``root`` (if not there yet) and return the library's path.
+    Records the build seconds and the ``-Xptxas -v`` report (kept beside the
+    library, so a cached build has it too) in ``info`` (:data:`build_info` by
+    default)."""
+    info = build_info if info is None else info
+    out_dir = root / source_hash(csrc)
     lib_path = out_dir / "librepro_torch_kernels.so"
+    log_path = out_dir / "nvcc.log"
     if lib_path.exists():
-        build_info.setdefault("seconds", 0.0)
-        build_info.setdefault("log", "")
-        build_info["cached"] = True
+        info.setdefault("seconds", 0.0)
+        info["log"] = log_path.read_text() if log_path.exists() else ""
+        info["cached"] = True
         return lib_path
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         procs = []
-        for name in SOURCES:
-            obj = pathlib.Path(tmp) / (name + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
-            procs.append((name, obj, subprocess.Popen(
+        for src in sorted(csrc.glob("*.cu")):
+            obj = pathlib.Path(tmp) / (src.name + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            procs.append((src.name, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         logs = []
         failed = []
@@ -122,9 +125,20 @@ def build() -> pathlib.Path:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
+        log_path.write_text(log)
         os.replace(tmp_lib, lib_path)  # atomic: a concurrent reader never sees half a file
-    build_info.update(seconds=time.perf_counter() - t0, log=log, cached=False)
+    info.update(seconds=time.perf_counter() - t0, log=log, cached=False)
     return lib_path
+
+
+def load(path: pathlib.Path) -> ctypes.CDLL:
+    """Load a library that :func:`build` made and declare its entry points."""
+    handle = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
+    return handle
 
 
 def lib() -> ctypes.CDLL:
@@ -132,12 +146,7 @@ def lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(handle, name)
-                fn.argtypes = list(argtypes)
-                fn.restype = _RESTYPES.get(name, ctypes.c_int)
-            _lib = handle
+            _lib = load(build())
         return _lib
 
 

@@ -19,8 +19,9 @@ most ``CHUNK`` (and less than ``C``) wide, so their peak intermediate is
 ``(B, CHUNK, d)``.
 
 The f32, bf16 and int8 versions sum the square differences in one fixed
-order (:func:`sq_dist_fixed_order`), the one the kernels' warps use, and the
-pq versions fold in one fixed order (:func:`fold_sum_m`), so each kernel and
+order (:func:`sq_dist_fixed_order`), the one the kernels use (a warp's
+lanes, or one thread's 32 lane sums), and the pq versions fold in one fixed
+order (:func:`fold_sum_m`), so each kernel and
 its plain version are bitwise equal on any input.  Against the reference
 (``jnp.sum`` over ``d``, XLA's order) they agree bitwise on integer-valued
 data, where every sum is exact, and to rounding otherwise.  Per-row results
@@ -141,8 +142,9 @@ def expand_score_q_torch(x: torch.Tensor, scale: torch.Tensor, zero: torch.Tenso
 
 def expand_score_q_cuda(x: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
                         idx: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """CUDA kernel: the f32 kernel's warp-per-candidate gather on an int8
-    row, dequantized in registers; ``+inf`` where ``idx < 0``."""
+    """CUDA kernel: a thread per candidate loads its whole int8 row, the
+    query, ``scale`` and ``zero`` staged once per block, and keeps the fixed
+    order's 32 lane sums in registers; ``+inf`` where ``idx < 0``."""
     n, d = x.shape
     B, C = idx.shape
     cuda_lib.require(x, torch.int8, (n, d), "expand_score_q x")

@@ -5,30 +5,42 @@ interval passes the predicate (``is_filter=True``, IF/RF: the object lies
 within the query window; ``False``, IS/RS: the object covers it), ascending
 under the total order ``(distance, id)`` and padded with ``(+inf, -1)``: the
 paper's pre-filter scan and the ground truth, with no ``(nq, nx)`` matrix in
-device memory.  Distances are those of ``kernels/l2dist.py``'s plain
-version, folded in the same fixed order: the CUDA kernel computes them on
-the SIMT tile of ``csrc/sq_dist_tile.cuh``, not on ``pairwise_sq_dist``'s
-tensor-core tile.
+device memory.
 
-The CUDA kernel (``csrc/fused_scan.cu``) streams the corpus through shared
-memory a 128-row tile at a time and keeps each query's running top-k there;
-:func:`filtered_topk_torch` is its plain version, a stable sort and a slice
-per corpus slice folded with ``merge_topk``.  Both keep the lower id first
-on equal distances, as the reference's oracle (``lax.top_k``) and its
-``brute_force`` do, so the two agree bitwise on any input.
+:func:`filtered_topk_torch` is the plain version: ``kernels/l2dist.py``'s
+plain distance block per corpus slice, a stable sort and a slice, folded
+with ``merge_topk``.  The CUDA kernel (``csrc/fused_scan.cu``) computes its
+distance tiles on the tensor cores (``csrc/mma_tile.cuh``, the tile of
+``pairwise_sq_dist``: 3×TF32 for f32, one bf16 product for bf16), as the
+reference's Pallas kernel computes its product on the TPU's matrix unit,
+and keeps each query's running top-k in a sorted list per corpus range.
+Both keep the lower id first on equal distances, as the reference's oracle
+(``lax.top_k``) and its ``brute_force`` do.
+
+The tensor cores sum the inner product in their own order, so the kernel is
+held to a stated rule, not to bitwise equality (:func:`rule_violations`):
+every kernel distance lies within ``(d + 4)·2⁻²³·(‖q_i‖² + ‖x_j‖²)`` of the
+plain one (``l2dist.tolerance``), so with ``tol_i = (d + 4)·2⁻²³·(‖q_i‖² +
+max_j ‖x_j‖²)`` the ``+inf`` pattern is the plain version's, the sorted
+values agree within ``tol_i``, and every id the kernel returns passes the
+predicate and lies within ``2·tol_i`` of the plain k-th distance.  On
+integer-valued data with ``|v| ≤ 8`` and ``d ≤ 256`` every sum is exact and
+the two agree bitwise, values and ids.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import cuda_lib
-from repro_torch.kernels.l2dist import BLOCK_COLS, fold_sq_norms, operands, sq_dist_block
+from repro_torch.kernels.l2dist import (BLOCK_COLS, fold_sq_norms, operands, sq_dist_block,
+                                        tolerance_terms)
 
-MAX_K = 256            # the kernel keeps k entries a query in shared memory
+MAX_K = 256            # entries of a list: 8 a lane of the kernel's warp
 MAX_SPLITS = 32        # corpus ranges a query's lists are merged from (one warp)
-QUERY_TILE = 64        # query rows per block of the kernel
+QUERY_TILE = 128       # query rows per block of the kernel
 CORPUS_TILE = 128      # corpus rows per step of the kernel
-BLOCKS_PER_SM = 8      # blocks the wrapper aims to put in flight per SM
+BLOCKS_PER_SM = 2      # blocks of the kernel an SM holds (its registers)
+FILL = 0.9             # share of the card's block slots the ranges must fill
 
 
 def check_k(k: int) -> None:
@@ -39,10 +51,15 @@ def check_k(k: int) -> None:
 def passes(obj_int: torch.Tensor, q_int: torch.Tensor, is_filter: bool) -> torch.Tensor:
     """``(nq, nx)`` predicate of query windows ``q_int`` against object
     intervals ``obj_int``, compared as float32."""
-    o, q = obj_int[None, :, :], q_int[:, None, :]
+    return pair_passes(obj_int[None, :, :], q_int[:, None, :], is_filter)
+
+
+def pair_passes(o: torch.Tensor, w: torch.Tensor, is_filter: bool) -> torch.Tensor:
+    """The predicate of object intervals ``o`` against query windows ``w``,
+    ``(..., 2)`` each, broadcast against each other."""
     if is_filter:
-        return (o[..., 0] >= q[..., 0]) & (o[..., 1] <= q[..., 1])
-    return (o[..., 0] <= q[..., 0]) & (o[..., 1] >= q[..., 1])
+        return (o[..., 0] >= w[..., 0]) & (o[..., 1] <= w[..., 1])
+    return (o[..., 0] <= w[..., 0]) & (o[..., 1] >= w[..., 1])
 
 
 def _intervals(a: torch.Tensor, n: int, name: str) -> torch.Tensor:
@@ -78,21 +95,93 @@ def filtered_topk_torch(q, x, obj_int, q_int, *, is_filter: bool, k: int):
     return vals, torch.where(torch.isfinite(vals), ids, -1)
 
 
+def rule_violations(q, x, obj_int, q_int, *, is_filter: bool, got, want) -> list[str]:
+    """The clauses of the kernel's rule that ``got`` breaks against the plain
+    version's ``want`` (both ``(values, ids)`` of one call); empty when it
+    holds.  With ``tol_i = (d + 4)·2⁻²³·(‖q_i‖² + max_j ‖x_j‖²)``
+    (``l2dist.tolerance_terms``, the folded norms):
+
+    (a) the ``+inf`` pattern is equal, and ids are ``-1`` exactly there;
+    (b) the sorted values agree elementwise within ``tol_i``;
+    (c) the ids of a row are distinct and pass the predicate, and each one's
+        plain distance lies within ``tol_i`` of its kernel value and at most
+        the plain k-th value + 2·``tol_i``.
+
+    Compared in float64; a block of 1,000 queries at a time."""
+    gv, gi = got
+    wv = want[0]
+    q, x = operands(q, x, "filtered_topk")
+    nq, nx = q.shape[0], x.shape[0]
+    obj_int = _intervals(obj_int, nx, "obj_int")
+    q_int = _intervals(q_int, nq, "q_int")
+    if gv.shape != wv.shape or gi.shape != gv.shape or gv.shape[0] != nq:
+        return ["(a) the shapes differ"]
+    factor, qn, xn = tolerance_terms(q, x)
+    tol = factor * (qn.double()[:, None] + (float(xn.max()) if nx else 0.0))
+    found = []
+    fin = torch.isfinite(gv)
+    if not torch.equal(fin, torch.isfinite(wv)) or not torch.equal(gi >= 0, fin):
+        found.append("(a) the +inf pattern differs")
+    if not bool((gv[:, 1:] >= gv[:, :-1]).all()):
+        found.append("(b) the values are not ascending")
+    if not bool(((gv.double() - wv.double()).abs() <= tol)[fin & torch.isfinite(wv)].all()):
+        found.append("(b) a sorted value lies outside tol_i of the plain one")
+    if bool(((gi >= nx) | (gi < -1)).any()):
+        return found + ["(c) an id lies outside the corpus"]
+    slot = torch.arange(gi.shape[1], device=gi.device)
+    key = torch.sort(torch.where(gi >= 0, gi.long(), -1 - slot), dim=1).values   # pads differ
+    if bool((key[:, 1:] == key[:, :-1]).any()):
+        found.append("(c) an id repeats in a row")
+    q32 = q.to(torch.float32)
+    for r in range(0, nq, 1000):
+        rows = slice(r, r + 1000)
+        live = gi[rows] >= 0
+        ids = gi[rows].long().clamp_min(0)
+        if not bool(pair_passes(obj_int[ids], q_int[rows, None, :], is_filter)[live].all()):
+            found.append("(c) an id fails the predicate")
+        # each (query, id) pair's plain distance: the plain version's fold
+        xs = x[ids].to(torch.float32)                                    # (rows, k, d)
+        ip = torch.zeros(ids.shape, dtype=torch.float32, device=q.device)
+        for c in range(q.shape[1]):
+            ip += q32[rows, c : c + 1] * xs[..., c]
+        pd = torch.clamp_min((qn[rows, None] + xn[ids]) - 2.0 * ip, 0.0).double()
+        t = tol[rows]
+        if not bool(((pd - gv[rows].double()).abs() <= t)[live].all()):
+            found.append("(c) an id's plain distance lies outside tol_i of its value")
+        if not bool((pd <= wv[rows, -1:].double() + 2 * t)[live].all()):
+            found.append("(c) an id lies beyond the plain k-th value + 2 tol_i")
+    return sorted(set(found))
+
+
 def splits_for(nq: int, nx: int, device: torch.device) -> int:
-    """Corpus ranges per query tile: enough blocks to fill the card
-    (``BLOCKS_PER_SM`` a multiprocessor), at most ``MAX_SPLITS`` and at most
-    one a corpus tile.  The answer does not depend on it."""
+    """Corpus ranges per query tile: the fewest (at most ``MAX_SPLITS``, at
+    most one a corpus tile) whose blocks fill at least ``FILL`` of the
+    block slots of the waves they take (``BLOCKS_PER_SM`` an SM), else the
+    count that fills most.  The blocks of one wave end together, so a last
+    wave that is mostly empty costs as much as a full one.  The answer does
+    not depend on it."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return splits_for_slots(nq, nx, BLOCKS_PER_SM * sms)
+
+
+def splits_for_slots(nq: int, nx: int, slots: int) -> int:
+    """:func:`splits_for` on a card with ``slots`` block slots."""
     q_tiles = (nq + QUERY_TILE - 1) // QUERY_TILE
     x_tiles = (nx + CORPUS_TILE - 1) // CORPUS_TILE
-    want = (BLOCKS_PER_SM * sms + q_tiles - 1) // q_tiles
-    return max(1, min(MAX_SPLITS, x_tiles, want))
+
+    def filled(s):
+        blocks = q_tiles * s
+        return blocks / (-(-blocks // slots) * slots)
+
+    options = range(1, max(1, min(MAX_SPLITS, x_tiles)) + 1)
+    return next((s for s in options if filled(s) >= FILL), max(options, key=filled))
 
 
 def filtered_topk_cuda(q, x, obj_int, q_int, *, is_filter: bool, k: int):
-    """CUDA kernel: a block per (64-query tile, corpus range) streams the
-    range in 128-row tiles and keeps each query's top-k in shared memory; a
-    second kernel merges a query's ranges, one warp a query."""
+    """CUDA kernel: a block per (128-query tile, corpus range) streams the
+    range in 128-row tiles through the tensor cores and keeps each query's
+    top-k of the range in a sorted list; a second kernel merges a query's
+    ranges, one warp a query."""
     check_k(k)
     q, x = operands(q, x, "filtered_topk")
     (nq, d), nx = q.shape, x.shape[0]

@@ -27,8 +27,8 @@ every product and partial sum is an integer below 2²⁴, the remainders are
 norm partial per 512-wide ``d`` tile) the plain version agrees to rounding,
 and bitwise on small integer data, where every sum is exact.
 
-``kernels/fused_scan.py`` keeps the SIMT distance tile, bitwise its plain
-version's fold.
+``kernels/fused_scan.py``'s kernel runs the same tile, and its top-k is
+held to the rule this bound implies (``fused_scan.rule_violations``).
 """
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
 """Each CUDA kernel of the port against its plain PyTorch version, on the card.
 
 Bitwise (floats compared as bit patterns), at small shapes and at the main
-path's shapes; ``pairwise_sq_dist``, whose product runs on the tensor cores
-(3×TF32), within its stated bound (``kernels.l2dist.tolerance``) and bitwise
-on small-integer data.  Every test decides inside itself whether a card is present
+path's shapes; ``pairwise_sq_dist`` and ``filtered_topk``, whose products run
+on the tensor cores (3×TF32), within their stated rules
+(``kernels.l2dist.tolerance``, ``kernels.fused_scan.rule_violations``) and
+bitwise on small-integer data.  Every test decides inside itself whether a card is present
 and skips without one.  This file imports neither JAX nor the reference
 package, so it runs on a machine with only PyTorch:
 
@@ -96,12 +97,40 @@ def int8_case(dev, n, d, B, C, *, seed=0):
 
 
 @pytest.mark.parametrize("n,d,B,C", [(50, 8, 3, 5), (300, 19, 17, 40), (1000, 33, 9, 64),
-                                     (1000, 128, 64, 256)])
+                                     (1000, 128, 64, 256), (300, 7, 17, 40), (500, 100, 9, 64),
+                                     (500, 129, 9, 130), (500, 256, 5, 300), (60, 33, 7, 1)])
 def test_expand_score_q_matches_plain(dev, n, d, B, C):
+    """d ∈ {7, 19, 33, 100, 129} reads the rows with aligned words and a
+    funnel shift, 8, 128 and 256 with 16-byte loads; d = 129 and 256 take
+    two staged pieces of the query; C = 1 leaves most of a block idle."""
     from repro_torch.kernels import expand_score as es
 
     case = int8_case(dev, n, d, B, C, seed=n + d)
     assert_bitwise([es.expand_score_q_cuda(*case)], [es.expand_score_q_torch(*case)])
+
+
+@pytest.mark.parametrize("d", [19, 100, 128])
+@pytest.mark.parametrize("offset", [1, 2, 3, 4, 8])
+def test_expand_score_q_unaligned_rows(dev, d, offset):
+    """A view of the codes that starts ``offset`` bytes past a 16-byte
+    boundary: no row is 16-byte aligned, nor (offset 1–3) 4-byte aligned."""
+    from repro_torch.kernels import expand_score as es
+
+    codes, scale, zero, idx, q = int8_case(dev, 400, d, 11, 70, seed=d + offset)
+    buf = torch.zeros(codes.numel() + 16, dtype=torch.int8, device=dev)
+    view = buf[offset : offset + codes.numel()].view(codes.shape)
+    view.copy_(codes)
+    assert view.is_contiguous() and view.data_ptr() % 16 == offset
+    assert_bitwise([es.expand_score_q_cuda(view, scale, zero, idx, q)],
+                   [es.expand_score_q_torch(codes, scale, zero, idx, q)])
+
+
+def test_expand_score_q_all_masked(dev):
+    from repro_torch.kernels import expand_score as es
+
+    codes, scale, zero, idx, q = int8_case(dev, 100, 128, 6, 200, seed=3)
+    got = es.expand_score_q_cuda(codes, scale, zero, torch.full_like(idx, -1), q)
+    assert bool(torch.isinf(got).all() and (got > 0).all())
 
 
 def pq_case(dev, n, m, dsub, B, C, *, seed=0):
@@ -326,6 +355,15 @@ def assert_within_bound(q, x):
     assert bool((err <= tolerance(q, x).double()).all())
 
 
+def assert_topk_within_rule(case, got, want, is_filter):
+    """The kernel's top-k within ``fused_scan.rule_violations`` of the
+    plain version's (the 3×TF32 distances sum in another order)."""
+    from repro_torch.kernels.fused_scan import rule_violations
+
+    torch.cuda.synchronize()
+    assert rule_violations(*case, is_filter=is_filter, got=got, want=want) == []
+
+
 @pytest.mark.parametrize("nq,nx,d", [(3, 5, 7), (17, 33, 17), (130, 257, 96),
                                      (64, 4096, 128), (129, 1000, 200)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -363,14 +401,35 @@ def test_pairwise_sq_dist_unaligned_rows(dev):
 @pytest.mark.parametrize("integer", [False, True])
 def test_filtered_topk_matches_plain(dev, nq, nx, d, k, is_filter, integer):
     """Ragged shapes, k > nx (nx = 40, k = 64), all-excluded rows and, on
-    integer data, exact ties between repeated rows."""
+    integer data, exact ties between repeated rows: bitwise there, within
+    the rule on Gaussian data."""
     case = scan_case(dev, nq, nx, d, seed=nq * nx + d, integer=integer)
     kw = dict(is_filter=is_filter, k=k)
     got = ops.filtered_topk(*case, backend="cuda", **kw)
     want = ops.filtered_topk(*case, backend="torch", **kw)
     torch.cuda.synchronize()
-    assert_bitwise(got, want)
+    if integer:
+        assert_bitwise(got, want)
+    else:
+        assert_topk_within_rule(case, got, want, is_filter)
     assert bool((got[1][::5] == -1).all())
+
+
+@pytest.mark.parametrize("k", [1, 10, 64, 256])
+@pytest.mark.parametrize("is_filter", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_filtered_topk_integer_bitwise(dev, k, is_filter, dtype):
+    """|v| ≤ 8 integers at d = 128: the TF32 remainders are 0 and every sum
+    is exact, so values and ids are the plain version's, ties included."""
+    rng = np.random.default_rng(k)
+    q, x = (rng.integers(-8, 9, (m, 128)).astype(np.float32) for m in (130, 3000))
+    x[1500:] = x[:1500]
+    _, _, oi, qi = scan_case(dev, 130, 3000, 8, seed=k, integer=True)
+    case = (torch.as_tensor(q, device=dev).to(dtype), torch.as_tensor(x, device=dev).to(dtype),
+            oi, qi)
+    kw = dict(is_filter=is_filter, k=k)
+    assert_bitwise(ops.filtered_topk(*case, backend="cuda", **kw),
+                   ops.filtered_topk(*case, backend="torch", **kw))
 
 
 def test_filtered_topk_bf16_and_large_k(dev):
@@ -382,12 +441,22 @@ def test_filtered_topk_bf16_and_large_k(dev):
         ops.filtered_topk(*case, is_filter=False, k=257, backend="cuda")
 
 
+@pytest.mark.parametrize("is_filter", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_filtered_topk_large_k_gaussian(dev, is_filter, dtype):
+    """k = 256 at d = 128 on Gaussian data: the longest lists."""
+    case = scan_case(dev, 300, 20_000, 128, seed=256, dtype=dtype)
+    kw = dict(is_filter=is_filter, k=256)
+    assert_topk_within_rule(case, ops.filtered_topk(*case, backend="cuda", **kw),
+                            ops.filtered_topk(*case, backend="torch", **kw), is_filter)
+
+
 def test_filtered_topk_main_shape(dev):
     """1,000 queries against 200,000 rows at d = 128 (many corpus ranges a
     query tile, so the merge kernel folds many lists)."""
     case = scan_case(dev, 1000, 200_000, 128, seed=21)
-    assert_bitwise(ops.filtered_topk(*case, is_filter=True, k=10, backend="cuda"),
-                   ops.filtered_topk(*case, is_filter=True, k=10, backend="torch"))
+    assert_topk_within_rule(case, ops.filtered_topk(*case, is_filter=True, k=10, backend="cuda"),
+                            ops.filtered_topk(*case, is_filter=True, k=10, backend="torch"), True)
 
 
 def test_build_exact_prune_backends_bitwise(dev):

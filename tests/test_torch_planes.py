@@ -115,6 +115,56 @@ def test_expand_score_q_matches_reference(n, d, B, C, exact):
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
 
 
+def int8_codes_as_f32(codes: np.ndarray) -> np.ndarray:
+    """The int8 kernel's conversion: the bits 0x4B000000 | (c ^ 0x80), the
+    f32 2²³ + c + 128, less 2²³ + 128."""
+    u = (codes.astype(np.uint8) ^ np.uint8(0x80)).astype(np.uint32) | np.uint32(0x4B000000)
+    return u.view(np.float32) - np.float32(8388736.0)
+
+
+def test_int8_code_bits_are_the_exact_value():
+    codes = np.arange(-128, 128, dtype=np.int8)
+    assert np.array_equal(int8_codes_as_f32(codes).view(np.int32),
+                          codes.astype(np.float32).view(np.int32))
+
+
+def thread_order_q(codes, scale, zero, idx, q):
+    """The int8 kernel's order in numpy, a candidate as one thread computes
+    it: 32 lane sums (element e into sum e % 32, in order of e), then the
+    butterfly's tree (s[l] + s[l + 16], then + 8, 4, 2, 1)."""
+    B, C = idx.shape
+    d = codes.shape[1]
+    out = np.full((B, C), np.inf, dtype=np.float32)
+    for b in range(B):
+        for c in range(C):
+            if idx[b, c] < 0:
+                continue
+            xv = int8_codes_as_f32(codes[min(idx[b, c], len(codes) - 1)])
+            df = q[b] - (xv * scale + zero)
+            s = np.zeros(32, dtype=np.float32)
+            for e in range(d):
+                s[e % 32] = s[e % 32] + df[e] * df[e]
+            for w in (16, 8, 4, 2, 1):
+                s[:w] = s[:w] + s[w : 2 * w]
+            out[b, c] = s[0]
+    return out
+
+
+@pytest.mark.parametrize("d", [7, 100, 128, 129, 256])
+def test_expand_score_q_thread_order_is_the_fixed_order(d):
+    """The int8 kernel keeps each candidate's 32 lane sums in one thread and
+    ends with a tree: that is the fixed lane order of the plain version, bit
+    for bit (Gaussian data, so any other order would show)."""
+    rng = np.random.default_rng(d)
+    codes = rng.integers(-128, 128, (40, d)).astype(np.int8)
+    scale = rng.uniform(0.01, 0.1, d).astype(np.float32)
+    zero = rng.normal(size=d).astype(np.float32)
+    q = rng.normal(size=(3, d)).astype(np.float32)
+    idx = rng.integers(-1, 40, (3, 9)).astype(np.int32)
+    want = port_es.expand_score_q_torch(*map(torch.as_tensor, (codes, scale, zero, idx, q)))
+    assert_bitwise(want, thread_order_q(codes, scale, zero, idx, q))
+
+
 @pytest.mark.parametrize("m,dsub", [(1, 8), (3, 4), (4, 2), (16, 1)])
 @pytest.mark.parametrize("exact", [True, False])
 def test_expand_score_pq_matches_reference(m, dsub, exact):

@@ -11,6 +11,11 @@ port breaks by the lower id, as the oracle's ``lax.top_k`` does.  (The
 Pallas kernel inserts an equal distance ahead of the entries it already
 holds, so on ties it keeps later ids: its ids are compared below the k-th
 distance only.)
+
+The CUDA kernels' arithmetic (3×TF32 tensor-core products, which sum in
+another order than the plain versions) is emulated in numpy and held to the
+rules the card tests hold the kernels to: ``l2dist.tolerance`` and
+``fused_scan.rule_violations``, whose teeth are tested too.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +24,7 @@ import torch
 
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_oracles
-from repro_torch.kernels import cuda_lib, l2dist, ops
+from repro_torch.kernels import cuda_lib, fused_scan, l2dist, ops
 from repro_torch.kernels import ref as port_oracles
 from repro_torch.kernels.fused_scan import MAX_K
 
@@ -237,6 +242,102 @@ def test_filtered_topk_refuses_k_out_of_range(k):
     q, x, oi, qi = map(torch.as_tensor, scan_case(1, 3, 20, 4))
     with pytest.raises(ValueError):
         ops.filtered_topk(q, x, oi, qi, is_filter=True, k=k)
+
+
+def topk_3xtf32(q, x, oi, qi, *, is_filter: bool, k: int):
+    """The CUDA kernel's arithmetic in numpy: the emulated 3×TF32 distances,
+    the predicate, and a stable top-k (the lower id first on ties), padded
+    with ``(+inf, -1)``."""
+    d = sq_dist_3xtf32(q, x)
+    o, w = oi[None, :, :], qi[:, None, :]
+    if is_filter:
+        ok = (o[..., 0] >= w[..., 0]) & (o[..., 1] <= w[..., 1])
+    else:
+        ok = (o[..., 0] <= w[..., 0]) & (o[..., 1] >= w[..., 1])
+    d = np.where(ok, d, np.float32(np.inf))
+    order = np.argsort(d, axis=1, kind="stable")[:, :k]
+    vals = np.take_along_axis(d, order, axis=1)
+    pad = k - vals.shape[1]
+    vals = np.pad(vals, ((0, 0), (0, pad)), constant_values=np.inf)
+    ids = np.pad(order.astype(np.int32), ((0, 0), (0, pad)), constant_values=-1)
+    return vals, np.where(np.isfinite(vals), ids, -1).astype(np.int32)
+
+
+@pytest.mark.parametrize("d", [7, 128, 200])
+@pytest.mark.parametrize("is_filter", [True, False])
+def test_filtered_topk_3xtf32_model_within_rule(d, is_filter):
+    """The rule the card tests hold the kernel to, held to the design's
+    arithmetic on Gaussian data: the emulated kernel against the plain
+    version, through ``fused_scan.rule_violations``."""
+    q, x, oi, qi = scan_case(d + 17 * is_filter, 23, 400, d)
+    t = tuple(map(torch.as_tensor, (q, x, oi, qi)))
+    got = tuple(map(torch.as_tensor, topk_3xtf32(q, x, oi, qi, is_filter=is_filter, k=10)))
+    want = fused_scan.filtered_topk_torch(*t, is_filter=is_filter, k=10)
+    assert fused_scan.rule_violations(*t, is_filter=is_filter, got=got, want=want) == []
+
+
+@pytest.mark.parametrize("d", [7, 128, 200])
+@pytest.mark.parametrize("k", [1, 10, 64])
+def test_filtered_topk_3xtf32_model_integer_bitwise(d, k):
+    """|v| ≤ 8 integers with repeated rows: the emulated kernel equals the
+    plain version bit for bit, values and ids (ties by the lower id)."""
+    rng = np.random.default_rng(d * k)
+    q = rng.integers(-8, 9, (17, d)).astype(np.float32)
+    x = rng.integers(-8, 9, (300, d)).astype(np.float32)
+    x[150:] = x[:150]
+    _, _, oi, qi = scan_case(d + k, 17, 300, 4, integer=True)
+    for is_filter in (True, False):
+        vals, ids = topk_3xtf32(q, x, oi, qi, is_filter=is_filter, k=k)
+        pv, pid = fused_scan.filtered_topk_torch(*map(torch.as_tensor, (q, x, oi, qi)),
+                                                 is_filter=is_filter, k=k)
+        assert_bitwise(pv, vals)
+        assert_bitwise(pid, ids)
+
+
+@pytest.mark.parametrize("fault", ["farther_id", "repeated_id", "excluded_id", "value",
+                                   "inf_pattern", "unsorted"])
+def test_filtered_topk_rule_rejects_a_wrong_answer(fault):
+    """The rule is not vacuous: the plain answer passes it, and the same
+    answer with one fault does not, the clause that names the fault among
+    those it reports."""
+    q, x, oi, qi = map(torch.as_tensor, scan_case(31, 12, 500, 16, half=0.4))
+    want = fused_scan.filtered_topk_torch(q, x, oi, qi, is_filter=True, k=10)
+    assert fused_scan.rule_violations(q, x, oi, qi, is_filter=True, got=want, want=want) == []
+    vals, ids = want[0].clone(), want[1].clone()
+    row = 1
+    ok = fused_scan.passes(oi, qi[row : row + 1], True)[0]
+    dist = l2dist.pairwise_sq_dist_torch(q[row : row + 1], x)[0]
+    if fault == "farther_id":        # a passing object far beyond the k-th, same value
+        ids[row, 3] = int(torch.where(ok, dist, -1.0).argmax())
+        clause = "(c)"
+    elif fault == "repeated_id":
+        ids[row, 3] = ids[row, 2]
+        clause = "(c)"
+    elif fault == "excluded_id":     # the nearest object the window excludes
+        ids[row, 3] = int(torch.where(ok, torch.inf, dist).argmin())
+        clause = "(c)"
+    elif fault == "value":
+        vals[row, 9] = vals[row, 9] * 1.01
+        clause = "(b)"
+    elif fault == "inf_pattern":
+        vals[row, 9], ids[row, 9] = torch.inf, -1
+        clause = "(a)"
+    else:
+        vals[row, 3], vals[row, 4] = vals[row, 4].clone(), vals[row, 3].clone()
+        clause = "(b)"
+    assert bool(torch.isfinite(want[0][row]).all())
+    found = fused_scan.rule_violations(q, x, oi, qi, is_filter=True, got=(vals, ids), want=want)
+    assert any(f.startswith(clause) for f in found), found
+
+
+def test_splits_fill_the_block_slots():
+    """The corpus ranges fill at least FILL of the card's block slots where
+    any count up to MAX_SPLITS can, and never exceed the corpus tiles."""
+    slots = fused_scan.BLOCKS_PER_SM * 132
+    assert fused_scan.splits_for_slots(10_000, 1_000_000, slots) == 10   # 790 of 792 slots
+    assert fused_scan.splits_for_slots(1_000, 1_000_000, slots) == 30    # 240 of 264
+    assert fused_scan.splits_for_slots(5, 100, slots) == 1               # one corpus tile
+    assert fused_scan.splits_for_slots(77, 3001, slots) == 24            # 24 corpus tiles
 
 
 # ------------------------------------------------------------- dispatch rules
