@@ -1,4 +1,5 @@
-"""Time this tree's ``expand_score_q`` and ``filtered_topk`` kernels against
+"""Time this tree's scorer kernels (``expand_score`` f32 and bf16,
+``expand_score_q``, ``expand_score_pq``) and ``filtered_topk`` against
 another tree's, in turns, on one card.
 
     python -m repro_torch.bench.turns --baseline DIR
@@ -8,14 +9,14 @@ parent commit, unpacked with ``git archive``).  Its ``kernels/csrc`` is
 built with this tree's ``cuda_lib.build`` under
 ``build/repro_torch_kernels/baseline``, and its ``filtered_topk`` gets the
 corpus ranges its own ``fused_scan.splits_for`` picks.  Both builds'
-``-Xptxas -v`` lines for the two kernels are printed.  Each kernel runs at
-the main path's shape (``expand_score_q``: n = 1M, d = 128, B = 10,000,
-C = 256, 20 % masked, with the f32 ``expand_score`` on the same
-candidates beside it; ``filtered_topk``: 10,000 queries × 1M rows × 128,
+``-Xptxas -v`` lines for these kernels are printed.  Each kernel runs at
+the main path's shape (the scorers: n = 1M, d = 128, B = 10,000, C = 256,
+20 % masked, the same candidates on an int8, a bf16, an f32 and a pq
+(m = 16) plane; ``filtered_topk``: 10,000 queries × 1M rows × 128,
 k = 10, IF and IS, f32 and bf16) in the order baseline, this tree, this
 tree, baseline, each turn the mean of CUDA-event timed back-to-back calls
-after a warm-up.  The answers are checked first: ``expand_score_q``
-bitwise against the baseline, ``filtered_topk`` within
+after a warm-up.  The answers are checked first: the scorers bitwise
+against the baseline's, ``filtered_topk`` within
 ``fused_scan.rule_violations`` of the baseline's.  Prints one JSON object
 per line.
 """
@@ -25,6 +26,7 @@ import argparse
 import importlib.util
 import json
 import pathlib
+import subprocess
 
 import torch
 
@@ -32,6 +34,7 @@ from repro_torch.kernels import cuda_lib, fused_scan
 from repro_torch.kernels.util import no_tf32
 
 SHAPE_Q = dict(n=1_000_000, d=128, B=10_000, C=256)
+PQ_M = 16                      # pq subspaces at d = 128
 SHAPE_SCAN = dict(nq=10_000, nx=1_000_000, d=128, k=10)
 REPS_Q, REPS_SCAN = 20, 3      # calls a turn
 KERNELS = pathlib.Path("src/repro_torch/kernels")
@@ -71,7 +74,23 @@ def ptxas(info: dict, sources: tuple[str, ...]) -> list[str]:
     return out
 
 
-def expand_score_q_rows(libs: dict, dev, reps: int) -> dict:
+def bitwise_turns(name: str, libs: dict, call, out_shape, dev, reps: int) -> dict:
+    """``call(lib, out)`` launches one tree's kernel into ``out``.  Checks
+    that this tree's output is the baseline's bit for bit, then times the
+    two in turns."""
+    outs = {tag: torch.empty(out_shape, device=dev) for tag in libs}
+    for tag, lib in libs.items():
+        cuda_lib.check(call(lib, outs[tag]), f"{name} ({tag})")
+    torch.cuda.synchronize()
+    if not torch.equal(outs["baseline"].view(torch.int32), outs["new"].view(torch.int32)):
+        raise AssertionError(f"{name}: this tree's kernel != the baseline's")
+    row = in_turns(lambda: call(libs["baseline"], outs["baseline"]),
+                   lambda: call(libs["new"], outs["new"]), reps)
+    return dict(row, bitwise_equal=True)
+
+
+def scorer_rows(libs: dict, dev, reps: int):
+    """The four scorers on the same candidates: int8, bf16, f32, pq."""
     n, d, B, C = SHAPE_Q.values()
     g = torch.Generator(device=dev).manual_seed(1234)
     x = torch.randint(-127, 128, (n, d), generator=g, device=dev, dtype=torch.int8)
@@ -80,28 +99,32 @@ def expand_score_q_rows(libs: dict, dev, reps: int) -> dict:
     q = torch.randn(B, d, generator=g, device=dev)
     idx = torch.randint(0, n, (B, C), generator=g, device=dev, dtype=torch.int32)
     idx = torch.where(torch.rand(B, C, generator=g, device=dev) < 0.2, -1, idx).contiguous()
+    shape = dict(SHAPE_Q, masked=int((idx < 0).sum()))
     stream = cuda_lib.stream_ptr(q)
+    p = lambda t: t.data_ptr()
 
-    def run(lib, out):
-        return lambda: lib.repro_expand_score_q(
-            x.data_ptr(), scale.data_ptr(), zero.data_ptr(), idx.data_ptr(), q.data_ptr(),
-            out.data_ptr(), n, d, B, C, stream)
+    def q8(lib, out):
+        return lib.repro_expand_score_q(p(x), p(scale), p(zero), p(idx), p(q), p(out),
+                                        n, d, B, C, stream)
 
-    outs = {tag: torch.empty(B, C, device=dev) for tag in libs}
-    for tag, lib in libs.items():
-        cuda_lib.check(run(lib, outs[tag])(), f"expand_score_q ({tag})")
-    torch.cuda.synchronize()
-    same = bool(torch.equal(outs["baseline"].view(torch.int32), outs["new"].view(torch.int32)))
-    if not same:
-        raise AssertionError("expand_score_q: this tree's kernel != the baseline's")
-    row = in_turns(run(libs["baseline"], outs["baseline"]), run(libs["new"], outs["new"]), reps)
-    # the f32 scorer on the same candidates, for scale (this tree's kernel)
+    yield dict(kernel="expand_score_q", **bitwise_turns("expand_score_q", libs, q8, (B, C),
+                                                         dev, reps), shape=shape)
+    del x
     xf = torch.randn(n, d, generator=g, device=dev)
-    of = torch.empty(B, C, device=dev)
-    f32 = lambda: libs["new"].repro_expand_score(xf.data_ptr(), idx.data_ptr(), q.data_ptr(),
-                                                 of.data_ptr(), n, d, B, C, stream)
-    row["expand_score_f32_ms"] = ms_per_call(f32, reps)
-    return dict(row, bitwise_equal=same, shape=dict(SHAPE_Q, masked=int((idx < 0).sum())))
+    for name, xs in (("expand_score_bf16", xf.to(torch.bfloat16)), ("expand_score", xf)):
+        def run(lib, out, name=name, xs=xs):
+            return getattr(lib, "repro_" + name)(p(xs), p(idx), p(q), p(out), n, d, B, C, stream)
+
+        yield dict(kernel=name, **bitwise_turns(name, libs, run, (B, C), dev, reps), shape=shape)
+    del xf
+    codes = torch.randint(0, 256, (n, PQ_M), generator=g, device=dev, dtype=torch.uint8)
+    lut = torch.randn(B, PQ_M, 256, generator=g, device=dev)
+
+    def pq(lib, out):
+        return lib.repro_expand_score_pq(p(codes), p(lut), p(idx), p(out), n, PQ_M, B, C, stream)
+
+    yield dict(kernel="expand_score_pq", **bitwise_turns("expand_score_pq", libs, pq, (B, C),
+                                                          dev, reps), shape=dict(shape, m=PQ_M))
 
 
 def baseline_splits_for(root: pathlib.Path):
@@ -175,10 +198,14 @@ def main(argv=None) -> int:
                                                      cuda_lib.BUILD_ROOT / "baseline",
                                                      base_info)),
             "new": cuda_lib.lib()}
-    sources = ("expand_score_q.cu", "fused_scan.cu")
-    emit(device=torch.cuda.get_device_name(0), ptxas_baseline=ptxas(base_info, sources),
+    sources = ("expand_score.cu", "expand_score_q.cu", "expand_score_pq.cu", "fused_scan.cu")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    emit(device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+         ptxas_baseline=ptxas(base_info, sources),
          ptxas=ptxas(cuda_lib.build_info, sources))
-    emit(kernel="expand_score_q", **expand_score_q_rows(libs, dev, REPS_Q))
+    for row in scorer_rows(libs, dev, REPS_Q):
+        emit(**row)
     for row in filtered_topk_rows(libs, dev, REPS_SCAN, baseline_splits_for(args.baseline)):
         emit(kernel="filtered_topk", **row)
     return 0

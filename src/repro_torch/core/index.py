@@ -14,6 +14,9 @@ uint16 bit view), ``intervals`` float32, ``nbrs`` int32, ``status`` uint8,
 and where present ``x_scale``/``x_zero`` (int8), ``x_codebooks`` (pq) and
 ``rerank`` (f32).  An index crosses between the two packages in either
 direction, and a saved plane is read back, never encoded again.
+``meta.json``'s ``prune_backend`` is written under the reference's name for
+the same role (:data:`SAVED_BACKEND`) and read back as the port's
+(:data:`LOADED_BACKEND`), so either package can go on updating the index.
 """
 from __future__ import annotations
 
@@ -34,6 +37,26 @@ from repro_torch.core.search import search_mixed as core_search_mixed
 from repro_torch.core.entry import build_entry_index
 from repro_torch.core.store import IndexStore, VectorPlane, as_tensor, make_store
 from repro_torch.kernels.util import no_tf32, resolve_device
+
+
+# prune_backend in meta.json: the port's name -> the reference's for the
+# same role (the hand-written kernel, the plain version), and back.
+SAVED_BACKEND = {"cuda": "pallas", "torch": "xla", None: None}
+LOADED_BACKEND = {
+    "pallas": "cuda", "xla": "torch",
+    # the reference's three sweeps give bit-identical outputs
+    # (src/repro/kernels/prune_sweep.py); the port has no legacy sweep, so
+    # its plain version takes that role
+    "legacy": "torch",
+    "cuda": "cuda", "torch": "torch", None: None,   # as the port wrote them before
+}
+
+
+def _rename_backend(table: dict, name):
+    if name not in table:
+        raise ValueError(f"unknown prune_backend {name!r} in meta.json "
+                         f"(choices {sorted(k for k in table if k)} or null)")
+    return table[name]
 
 
 def _on(a, device) -> torch.Tensor:
@@ -189,6 +212,7 @@ class UGIndex:
             arrays["rerank"] = npy(st.rerank.data)
         np.savez_compressed(path / "index.npz", **arrays)
         meta = dataclasses.asdict(self.config)
+        meta["prune_backend"] = _rename_backend(SAVED_BACKEND, meta["prune_backend"])
         meta["build_seconds"] = self.build_seconds
         meta["dtype"] = st.plane.tag
         (path / "meta.json").write_text(json.dumps(meta, indent=2))
@@ -203,13 +227,14 @@ class UGIndex:
         meta = json.loads((path / "meta.json").read_text())
         build_seconds = meta.pop("build_seconds", 0.0)
         tag = meta.pop("dtype", "f32")
+        meta["prune_backend"] = _rename_backend(LOADED_BACKEND, meta.get("prune_backend"))
         cfg = UGConfig(**meta)
         with np.load(path / "index.npz") as blob:
             arrays = {k: blob[k] for k in blob.files}
         if "alive" in arrays or "free" in arrays:
             raise NotImplementedError(
                 "tombstoned indexes (alive/free arrays) are not ported yet "
-                "(ROADMAP.md queue 1, item 8 'core/updates.py')")
+                "(ROADMAP.md, queue 1, the 'core/updates.py' item)")
         on = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(dev)
         if tag == "bf16":                       # stored as a uint16 bit view (see save)
             x = on(arrays["x"].view(np.int16)).view(torch.bfloat16)

@@ -108,7 +108,7 @@ __device__ __forceinline__ int select_bit(unsigned m, int k) {
     return pos;
 }
 
-// common.cuh's warp_sq_dist by one thread: lane sum l in s[l], then the
+// common.cuh's fixed order by one thread: lane sum l in s[l], then the
 // butterfly as a tree (s[l] + s[l + 16], ...), which is lane 0's order and,
 // by commutativity, every lane's.
 __device__ __forceinline__ float thread_sq_dist(const float* __restrict__ a,

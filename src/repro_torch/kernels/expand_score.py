@@ -6,7 +6,8 @@ and corpus row ``x[idx[b, c]]``, ``+inf`` where ``idx < 0``.  One kernel per
 vector plane (core/store.py), each in ``csrc/`` with its plain version here:
 
 * f32 and bf16 planes: :func:`expand_score_cuda` (``csrc/expand_score.cu``,
-  two entry points; a bf16 row is widened to f32 in registers);
+  two entry points of one template; a bf16 row is widened to f32 in
+  registers through its bits);
 * int8 plane: :func:`expand_score_q_cuda` (``csrc/expand_score_q.cu``), the
   row dequantized as ``x·scale + zero`` with two roundings;
 * pq plane: :func:`expand_score_pq_cuda` (``csrc/expand_score_pq.cu``), the
@@ -19,8 +20,8 @@ most ``CHUNK`` (and less than ``C``) wide, so their peak intermediate is
 ``(B, CHUNK, d)``.
 
 The f32, bf16 and int8 versions sum the square differences in one fixed
-order (:func:`sq_dist_fixed_order`), the one the kernels use (a warp's
-lanes, or one thread's 32 lane sums), and the pq versions fold in one fixed
+order (:func:`sq_dist_fixed_order`), the one the kernels use (one
+thread's 32 lane sums, then a tree), and the pq versions fold in one fixed
 order (:func:`fold_sum_m`), so each kernel and
 its plain version are bitwise equal on any input.  Against the reference
 (``jnp.sum`` over ``d``, XLA's order) they agree bitwise on integer-valued
@@ -94,9 +95,10 @@ def expand_score_torch(x: torch.Tensor, idx: torch.Tensor, q: torch.Tensor) -> t
 
 
 def expand_score_cuda(x: torch.Tensor, idx: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """CUDA kernel: one warp per candidate gathers ``x[idx[b, c]]`` (f32, or
-    bf16 widened in registers) and sums in the fixed order; ``+inf`` where
-    ``idx < 0``."""
+    """CUDA kernel: a thread per candidate loads its row ``x[idx[b, c]]``
+    (f32, or bf16 widened in registers) in 128-byte pieces, the query staged
+    once per block, and keeps the fixed order's 32 lane sums in registers;
+    ``+inf`` where ``idx < 0``."""
     n, d = x.shape
     B, C = idx.shape
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -222,8 +224,9 @@ def expand_score_pq_torch(codes: torch.Tensor, codebooks: torch.Tensor, idx: tor
 
 def expand_score_pq_cuda(codes: torch.Tensor, codebooks: torch.Tensor, idx: torch.Tensor,
                          q: torch.Tensor, *, lut: torch.Tensor | None = None) -> torch.Tensor:
-    """CUDA kernel: one block per query stages its ``(m, 256)`` table in
-    shared memory; its threads stride over the candidates, each folding
+    """CUDA kernel: persistent blocks walk the queries, each keeping a ring
+    of up to three ``(m, 256)`` tables in shared memory, so the next
+    queries' tables arrive while a thread per candidate folds this query's
     ``m`` lookups; ``+inf`` where ``idx < 0``."""
     n, m = codes.shape
     B, C = idx.shape

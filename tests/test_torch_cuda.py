@@ -85,6 +85,54 @@ def test_expand_score_bf16_matches_plain(dev, n, d, B, C):
                    [ops.expand_score(x, idx, q, backend="torch")])
 
 
+PLANE_DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.parametrize("d", [1, 7, 8, 31, 64, 100, 128, 129, 256])
+@pytest.mark.parametrize("dtype", PLANE_DTYPES)
+def test_expand_score_over_d(dev, dtype, d):
+    """Rows of 1 to 256 elements: whole 16-byte loads (bf16 d % 8 == 0, f32
+    d % 4 == 0) or aligned words (the rest), one to four 128-byte pieces,
+    the last one partial; ids >= n (clamped to n - 1) and whole masked
+    query rows among the candidates."""
+    x, idx, q = expand_case(dev, 300, d, 7, 150, seed=d)
+    idx = mask_rows(idx.cpu().numpy())
+    idx[1, ::5] = 300 + np.arange(len(idx[1, ::5]))          # ids >= n
+    idx = torch.as_tensor(idx, device=dev)
+    x = x.to(dtype)
+    assert_bitwise([ops.expand_score(x, idx, q, backend="cuda")],
+                   [ops.expand_score(x, idx, q, backend="torch")])
+
+
+@pytest.mark.parametrize("d", [7, 100, 128])
+@pytest.mark.parametrize("offset", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", PLANE_DTYPES)
+def test_expand_score_unaligned_rows(dev, dtype, d, offset):
+    """A view of the corpus that starts ``offset`` elements past a 16-byte
+    boundary: no row is 16-byte aligned where the offset is not a multiple
+    of 16 bytes, and (bf16, odd offsets) none is 4-byte aligned."""
+    x, idx, q = expand_case(dev, 400, d, 11, 70, seed=d + offset)
+    x = x.to(dtype)
+    buf = torch.zeros(x.numel() + 16, dtype=dtype, device=dev)
+    view = buf[offset : offset + x.numel()].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 == offset * x.element_size() % 16
+    assert_bitwise([ops.expand_score(view, idx, q, backend="cuda")],
+                   [ops.expand_score(x, idx, q, backend="torch")])
+
+
+@pytest.mark.parametrize("dtype", PLANE_DTYPES)
+def test_expand_score_all_masked_and_empty(dev, dtype):
+    x, idx, q = expand_case(dev, 100, 128, 6, 200, seed=3)
+    x = x.to(dtype)
+    got = ops.expand_score(x, torch.full_like(idx, -1), q, backend="cuda")
+    assert bool(torch.isinf(got).all() and (got > 0).all())
+    for B, C in ((0, 5), (4, 0)):
+        empty = ops.expand_score(x, idx[:B, :C].contiguous(), q[:B].contiguous(),
+                                 backend="cuda")
+        assert empty.shape == (B, C)
+
+
 def int8_case(dev, n, d, B, C, *, seed=0):
     rng = np.random.default_rng(seed)
     codes = rng.integers(-127, 128, (n, d)).astype(np.int8)
@@ -151,6 +199,54 @@ def test_expand_score_pq_matches_plain(dev, m, dsub, B, C):
     from repro_torch.kernels import expand_score as es
 
     codes, cb, idx, q = pq_case(dev, 500, m, dsub, B, C, seed=m + C)
+    lut = es.pq_lut(cb, q)
+    assert_bitwise([es.expand_score_pq_cuda(codes, cb, idx, q, lut=lut)],
+                   [es.expand_score_pq_torch(codes, cb, idx, q, lut=lut)])
+
+
+@pytest.mark.parametrize("m", [1, 3, 16, 17, 32, 64, 192])
+@pytest.mark.parametrize("C", [1, 31, 256, 300])
+def test_expand_score_pq_over_m_and_c(dev, m, C):
+    """m from 1 to 192 (one or more 32-byte code chunks, 16-byte loads
+    where m % 16 == 0; three tables a block up to m = 75, two up to 113,
+    one above); C from one candidate to more than a block's 256 threads."""
+    from repro_torch.kernels import expand_score as es
+
+    codes, cb, idx, q = pq_case(dev, 400, m, 2, 5, C, seed=7 * m + C)
+    lut = es.pq_lut(cb, q)
+    assert_bitwise([es.expand_score_pq_cuda(codes, cb, idx, q, lut=lut)],
+                   [es.expand_score_pq_torch(codes, cb, idx, q, lut=lut)])
+
+
+@pytest.mark.parametrize("m", [3, 16, 17, 32])
+@pytest.mark.parametrize("offset", [1, 2, 3, 8])
+def test_expand_score_pq_unaligned_code_rows(dev, m, offset):
+    """Codes and tables behind views that start past a 16-byte boundary:
+    code rows through aligned words and a funnel shift, tables copied 4
+    bytes at a time."""
+    from repro_torch.kernels import expand_score as es
+
+    codes, cb, idx, q = pq_case(dev, 300, m, 2, 9, 70, seed=m + offset)
+    cbuf = torch.zeros(codes.numel() + 16, dtype=torch.uint8, device=dev)
+    cview = cbuf[offset : offset + codes.numel()].view(codes.shape)
+    cview.copy_(codes)
+    lut = es.pq_lut(cb, q)
+    lbuf = torch.zeros(lut.numel() + 4, device=dev)
+    lview = lbuf[offset % 4 : offset % 4 + lut.numel()].view(lut.shape)
+    lview.copy_(lut)
+    assert cview.data_ptr() % 16 == offset
+    assert_bitwise([es.expand_score_pq_cuda(cview, cb, idx, q, lut=lview)],
+                   [es.expand_score_pq_torch(codes, cb, idx, q, lut=lut)])
+
+
+@pytest.mark.parametrize("m,B", [(16, 2), (16, 5000), (192, 3), (192, 1500)])
+def test_expand_score_pq_persistent_blocks(dev, m, B):
+    """B below the number of resident blocks (some blocks would have no
+    query) and far above it (each block walks many queries through its
+    table ring); m = 192 keeps one table a block."""
+    from repro_torch.kernels import expand_score as es
+
+    codes, cb, idx, q = pq_case(dev, 500, m, 1, B, 40, seed=m + B)
     lut = es.pq_lut(cb, q)
     assert_bitwise([es.expand_score_pq_cuda(codes, cb, idx, q, lut=lut)],
                    [es.expand_score_pq_torch(codes, cb, idx, q, lut=lut)])

@@ -6,9 +6,15 @@
   batches with the reference's ids, distances, step counts and iteration
   counts, bit for bit, for frontier widths 1 and 4; the reference loads
   what the port saved.
+* ``meta.json``'s ``prune_backend`` crosses in both directions: a
+  port-saved index takes the reference's ``insert``, and the reference's
+  ``pallas``/``xla``/``legacy`` load as the port's ``cuda``/``torch``.
 * Builds through NN-descent draw different random numbers in the two
   packages, so on Gaussian data they are held by recall@10 per semantics.
 """
+import dataclasses
+import json
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -148,3 +154,70 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(tmp_path):
     UGIndex(make_store(x, ints, nbrs, status, device="cpu"), UGConfig()).save(tmp_path)
     with pytest.raises(RuntimeError):
         UGIndex.load(tmp_path)
+
+
+# ------------------------------------------------- prune_backend in meta.json
+@pytest.fixture(scope="module")
+def bridge_case():
+    """A small exact build (n = 200) shared by the backend-name tests."""
+    rng = np.random.default_rng(5)
+    n, d = 200, 8
+    x = rng.integers(-4, 5, (n, d)).astype(np.float32)
+    ints = np.sort(rng.uniform(size=(n, 2)), axis=-1).astype(np.float32)
+    new_x = rng.integers(-4, 5, (3, d)).astype(np.float32)
+    new_iv = np.sort(rng.uniform(size=(3, 2)), axis=-1).astype(np.float32)
+    port = UGIndex.build(x, ints, UGConfig(**EXACT_CFG), device="cpu")
+    return port, (new_x, new_iv)
+
+
+def with_backend(index, name):
+    return dataclasses.replace(index, config=dataclasses.replace(index.config,
+                                                                 prune_backend=name))
+
+
+def saved_backend(path) -> str | None:
+    return json.loads((path / "meta.json").read_text())["prune_backend"]
+
+
+@pytest.mark.parametrize("port_name,ref_name", [("torch", "xla"), ("cuda", "pallas"),
+                                                (None, None)])
+def test_port_saved_index_takes_reference_insert(bridge_case, tmp_path, port_name, ref_name):
+    """The port writes the reference's name for the same role, so the
+    reference's insert, which reuses the saved name, runs on it; the port
+    reads its own name back."""
+    port, (new_x, new_iv) = bridge_case
+    with_backend(port, port_name).save(tmp_path)
+    assert saved_backend(tmp_path) == ref_name
+    ref = RefIndex.load(tmp_path)
+    assert ref.config.prune_backend == ref_name
+    grown = ref.insert(jnp.asarray(new_x), jnp.asarray(new_iv))
+    assert int(grown.store.live_count()) == port.n + len(new_x)
+    assert UGIndex.load(tmp_path, device="cpu").config.prune_backend == port_name
+
+
+@pytest.mark.parametrize("ref_name,port_name", [("pallas", "cuda"), ("xla", "torch"),
+                                                ("legacy", "torch"), (None, None)])
+def test_reference_saved_backend_loads_in_port(exact_case, tmp_path, ref_name, port_name):
+    ref = exact_case[2]
+    with_backend(ref, ref_name).save(tmp_path)
+    assert saved_backend(tmp_path) == ref_name
+    loaded = UGIndex.load(tmp_path, device="cpu")
+    assert loaded.config.prune_backend == port_name
+    assert np.array_equal(loaded.graph.nbrs.numpy(), np.asarray(ref.graph.nbrs))
+
+
+@pytest.mark.parametrize("name,ok", [("torch", True), ("cuda", True), ("triton", False),
+                                     ("", False)])
+def test_port_names_in_meta_still_load(bridge_case, tmp_path, name, ok):
+    """meta.json as earlier port releases wrote it (the port's own names)
+    still loads; a name neither package knows raises."""
+    port = bridge_case[0]
+    port.save(tmp_path)
+    meta = json.loads((tmp_path / "meta.json").read_text())
+    meta["prune_backend"] = name
+    (tmp_path / "meta.json").write_text(json.dumps(meta))
+    if ok:
+        assert UGIndex.load(tmp_path, device="cpu").config.prune_backend == name
+    else:
+        with pytest.raises(ValueError, match="prune_backend"):
+            UGIndex.load(tmp_path, device="cpu")

@@ -4,7 +4,9 @@ the reference, on the CPU.
 Inputs are made with numpy from a seed and handed to both packages; the
 reference runs through its ``xla`` twins.
 
-* Kernels.  ``expand_score_q_torch`` equals ``expand_score_q_xla`` bitwise
+* Kernels.  The int8 and bf16 kernels' per-thread order, bf16 widening
+  and the pq kernel's code-byte loads, emulated in numpy, are the plain
+  versions' bit for bit.  ``expand_score_q_torch`` equals ``expand_score_q_xla`` bitwise
   where the dequant is exact (integer codes, scale 1, zero 0) and to
   ``rtol=1e-5`` on Gaussian data (XLA sums over ``d`` in its own order and
   may contract the dequant into an FMA).  ``expand_score_pq_torch`` equals
@@ -128,19 +130,42 @@ def test_int8_code_bits_are_the_exact_value():
                           codes.astype(np.float32).view(np.int32))
 
 
-def thread_order_q(codes, scale, zero, idx, q):
-    """The int8 kernel's order in numpy, a candidate as one thread computes
-    it: 32 lane sums (element e into sum e % 32, in order of e), then the
-    butterfly's tree (s[l] + s[l + 16], then + 8, 4, 2, 1)."""
+def bf16_bits_as_f32(bits16: np.ndarray) -> np.ndarray:
+    """The bf16 kernel's widening: the element's 16 bits moved to the high
+    half of a word, zeros below."""
+    return (bits16.astype(np.uint32) << np.uint32(16)).view(np.float32)
+
+
+def test_bf16_bits_widen_exactly():
+    """All 65,536 bf16 patterns: the kernel's two widenings (``w << 16`` for
+    the element in a word's low half, ``w & 0xffff0000`` for the high half,
+    whatever the other half holds) give ``torch``'s bf16 -> f32 conversion
+    bit for bit, NaN payloads included (no exception)."""
+    pats = np.arange(1 << 16, dtype=np.uint32)
+    other = np.random.default_rng(0).integers(0, 1 << 16, pats.shape).astype(np.uint32)
+    sixteen = np.uint32(16)
+    low = ((other << sixteen) | pats) << sixteen                   # element in the low half
+    high = ((pats << sixteen) | other) & np.uint32(0xFFFF0000)     # element in the high half
+    want = (torch.from_numpy(pats.astype(np.uint16).view(np.int16)).view(torch.bfloat16)
+            .to(torch.float32).view(torch.int32).numpy())
+    assert np.array_equal(low.view(np.int32), want)
+    assert np.array_equal(high.view(np.int32), want)
+    assert np.array_equal(bf16_bits_as_f32(pats.astype(np.uint16)).view(np.int32), want)
+
+
+def thread_order(rows: np.ndarray, idx, q):
+    """The order of the int8 and bf16 kernels in numpy, a candidate as one
+    thread computes it from its decoded row ``rows[id]``: 32 lane sums
+    (element e into sum e % 32, in order of e), then the butterfly's tree
+    (s[l] + s[l + 16], then + 8, 4, 2, 1)."""
     B, C = idx.shape
-    d = codes.shape[1]
+    d = rows.shape[1]
     out = np.full((B, C), np.inf, dtype=np.float32)
     for b in range(B):
         for c in range(C):
             if idx[b, c] < 0:
                 continue
-            xv = int8_codes_as_f32(codes[min(idx[b, c], len(codes) - 1)])
-            df = q[b] - (xv * scale + zero)
+            df = q[b] - rows[min(idx[b, c], len(rows) - 1)]
             s = np.zeros(32, dtype=np.float32)
             for e in range(d):
                 s[e % 32] = s[e % 32] + df[e] * df[e]
@@ -150,19 +175,78 @@ def thread_order_q(codes, scale, zero, idx, q):
     return out
 
 
+@pytest.mark.parametrize("plane", ["int8", "bf16"])
 @pytest.mark.parametrize("d", [7, 100, 128, 129, 256])
-def test_expand_score_q_thread_order_is_the_fixed_order(d):
-    """The int8 kernel keeps each candidate's 32 lane sums in one thread and
-    ends with a tree: that is the fixed lane order of the plain version, bit
-    for bit (Gaussian data, so any other order would show)."""
+def test_expand_score_q_thread_order_is_the_fixed_order(plane, d):
+    """The int8 and bf16 kernels keep each candidate's 32 lane sums in one
+    thread and end with a tree: that is the fixed lane order of the plain
+    versions, bit for bit (Gaussian data, so any other order would show).
+    Rows are decoded as the kernels decode them: int8 codes through their
+    bits then ``x·scale + zero`` in two roundings, bf16 through its bits."""
     rng = np.random.default_rng(d)
-    codes = rng.integers(-128, 128, (40, d)).astype(np.int8)
-    scale = rng.uniform(0.01, 0.1, d).astype(np.float32)
-    zero = rng.normal(size=d).astype(np.float32)
     q = rng.normal(size=(3, d)).astype(np.float32)
     idx = rng.integers(-1, 40, (3, 9)).astype(np.int32)
-    want = port_es.expand_score_q_torch(*map(torch.as_tensor, (codes, scale, zero, idx, q)))
-    assert_bitwise(want, thread_order_q(codes, scale, zero, idx, q))
+    if plane == "int8":
+        codes = rng.integers(-128, 128, (40, d)).astype(np.int8)
+        scale = rng.uniform(0.01, 0.1, d).astype(np.float32)
+        zero = rng.normal(size=d).astype(np.float32)
+        rows = int8_codes_as_f32(codes) * scale + zero
+        want = port_es.expand_score_q_torch(*map(torch.as_tensor, (codes, scale, zero, idx, q)))
+    else:
+        x = torch.as_tensor(rng.normal(size=(40, d)).astype(np.float32)).to(torch.bfloat16)
+        rows = bf16_bits_as_f32(x.view(torch.int16).numpy().view(np.uint16))
+        want = port_es.expand_score_torch(x, torch.as_tensor(idx), torch.as_tensor(q))
+    assert_bitwise(want, thread_order(rows, idx, q))
+
+
+def funnelshift_r(lo: int, hi: int, shift: int) -> int:
+    return (((hi << 32) | lo) >> (shift & 31)) & 0xFFFFFFFF
+
+
+def pq_kernel_codes(words: np.ndarray, start: int, m: int) -> list[int]:
+    """The pq kernel's reads of the code row at byte ``start`` of an
+    allocation (``words``: its little-endian 32-bit words, word 0 on a
+    16-byte boundary): chunks of 32 codes, each as 16-byte loads where the
+    row starts on a 16-byte boundary and m % 16 == 0, else as the aligned
+    words that cover it, funnel shifted by the misalignment; code t of a
+    chunk is byte t % 4 of word t // 4.  Asserts that every word read holds
+    a byte of the row."""
+    vec = start % 16 == 0 and m % 16 == 0
+    got = []
+    for j0 in range(0, m, 32):
+        length = min(32, m - j0)
+        p = start + j0
+        if vec:
+            w = []
+            for i in range(2):
+                if 16 * i < length:
+                    assert p + 16 * i + 16 <= start + m
+                    w += [int(v) for v in words[(p + 16 * i) // 4 : (p + 16 * i) // 4 + 4]]
+                else:
+                    w += [0] * 4
+        else:
+            base, mis = p // 4, p % 4
+            nw = (mis + length + 3) // 4
+            assert 4 * (base + nw - 1) < start + m and 4 * base + 3 >= start
+            raw = [int(words[base + i]) if i < nw else 0 for i in range(9)]
+            w = [funnelshift_r(raw[i], raw[i + 1], 8 * mis) for i in range(8)]
+        got += [(w[t >> 2] >> (8 * (t & 3))) & 0xFF for t in range(length)]
+    return got
+
+
+@pytest.mark.parametrize("m", [1, 3, 16, 17, 32, 40])
+def test_pq_code_bytes_from_words(m):
+    """The pq kernel's code loads, emulated, return ``codes[row, j]`` at every
+    row start modulo 16 (rows packed from a misaligned offset)."""
+    rng = np.random.default_rng(m)
+    n = 9
+    codes = rng.integers(0, 256, (n, m)).astype(np.uint8)
+    for offset in range(16):
+        buf = np.zeros(((offset + n * m + 4 + 15) // 16) * 16, np.uint8)
+        buf[offset : offset + n * m] = codes.reshape(-1)
+        words = buf.view("<u4")
+        for r in range(n):
+            assert pq_kernel_codes(words, offset + r * m, m) == codes[r].tolist(), (offset, r)
 
 
 @pytest.mark.parametrize("m,dsub", [(1, 8), (3, 4), (4, 2), (16, 1)])
