@@ -12,7 +12,8 @@ the script exits non-zero without printing a result):
 2. each kernel at the main path's shapes, held bitwise against its plain
    PyTorch version and timed with CUDA events beside its plain version, its
    bound and, where one exists, a single PyTorch call that computes the
-   same function;
+   same function; ``beam_merge`` also at L = 2048 (the paper's degree
+   256 + 256 at W = 4), bitwise, its time and bound under ``paper_degree``;
 3. the main path at full size: ``make_corpus`` (n = 1,000,000, d = 128,
    SIFT1M's size and width) → ``UGIndex.build`` with the build CLI's
    defaults → ``UGIndex.search_mixed`` over 10,000 queries cycling
@@ -323,6 +324,23 @@ def phase2_kernels(dev) -> dict:
         bound_ms=b_ms, bound_by=b_by,
         max_abs_err=max(max_abs_err(a, b) for a, b in zip(got, want)),
         shape=dict(B=B, E=E, L=L))
+    # the same beams against L = 2048 candidates (the paper's degree 256 + 256
+    # at W = 4: several warps a row), bitwise, timed beside its bound
+    L = 2048
+    cd = pool[torch.randint(0, 5, (B, L), generator=g, device=dev)].contiguous()
+    cp = (torch.randint(0, 500_000, (B, L), generator=g, device=dev, dtype=torch.int32) << 1)
+    cp = torch.where(torch.isfinite(cd), cp, PAD_PAYLOAD).contiguous()
+    got = ops.beam_merge(bd, bp, cd, cp, backend="cuda")
+    want = ops.beam_merge(bd, bp, cd, cp, backend="torch")
+    torch.cuda.synchronize()
+    check(all(bits_equal(a, b) for a, b in zip(got, want)),
+          "beam_merge kernel != plain version at L = 2048")
+    lg = int(np.log2(L))
+    ce_per_row = L // 2 * lg * (lg + 1) // 2 + E + E // 2 * int(np.log2(E))
+    b_ms, b_by = bound(B * (2 * E + 2 * L) * 4 + B * 2 * E * 4, B * ce_per_row * 2)
+    rows["beam_merge"]["paper_degree"] = dict(
+        ms=cuda_ms(lambda: ops.beam_merge(bd, bp, cd, cp, backend="cuda")),
+        bound_ms=b_ms, bound_by=b_by, bitwise=True, shape=dict(B=B, E=E, L=L))
     del bd, bp, cd, cp, cat_d, got, want
 
     # prune_sweep: B = 1024, C = 96, d = 128, point intervals, all-pad rows
@@ -358,7 +376,7 @@ def phase2_kernels(dev) -> dict:
     for name, r in rows.items():
         emit(kernel=name, **CHECKED[name], kernel_ms=r["ms"], plain_ms=r["plain_ms"],
              library_ms=r["library_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-             shape=r["shape"])
+             shape=r["shape"], **{k: r[k] for k in ("paper_degree",) if k in r})
     return rows
 
 

@@ -23,8 +23,7 @@ import torch
 from repro_torch.kernels import cuda_lib
 
 PAD_PAYLOAD = -2  # (id=-1) << 1 | 0: what empty beam/candidate slots carry
-_MAX_THREADS = 1024
-_MAX_SMEM = 48 * 1024
+_MAX_BYTES = 48 * 1024  # (2L + 2E) * 4: the shapes the kernel takes (max(L, E) <= 4096)
 
 
 def next_pow2(v: int) -> int:
@@ -111,7 +110,8 @@ def beam_merge_torch(beam_d, beam_p, cand_d, cand_p):
 
 
 def beam_merge_cuda(beam_d, beam_p, cand_d, cand_p):
-    """CUDA kernel: one block per row runs the network in shared memory."""
+    """CUDA kernel: the network in registers, one warp a row (several where
+    ``max(L, E) > 256``), strides across lanes by warp shuffles."""
     B, E = beam_d.shape
     L_in = cand_d.shape[1]
     _check_width(E)
@@ -120,9 +120,8 @@ def beam_merge_cuda(beam_d, beam_p, cand_d, cand_p):
     cuda_lib.require(cand_d, torch.float32, (B, L_in), "beam_merge cand_d")
     cuda_lib.require(cand_p, torch.int32, (B, L_in), "beam_merge cand_p")
     L = next_pow2(max(L_in, 2))
-    threads = min(_MAX_THREADS, max(32, max(L, E) // 2))
-    if (2 * L + 2 * E) * 4 > _MAX_SMEM:
-        raise ValueError(f"beam_merge: E={E}, L={L} exceed the kernel's shared memory")
+    if (2 * L + 2 * E) * 4 > _MAX_BYTES:
+        raise ValueError(f"beam_merge: E={E}, L={L} exceed the kernel's shapes")
     out_d = torch.empty((B, E), dtype=torch.float32, device=beam_d.device)
     out_p = torch.empty((B, E), dtype=torch.int32, device=beam_d.device)
     if B == 0:
@@ -130,8 +129,7 @@ def beam_merge_cuda(beam_d, beam_p, cand_d, cand_p):
     lib = cuda_lib.lib()
     err = lib.repro_beam_merge(
         beam_d.data_ptr(), beam_p.data_ptr(), cand_d.data_ptr(), cand_p.data_ptr(),
-        out_d.data_ptr(), out_p.data_ptr(), B, E, L_in, L, threads,
-        cuda_lib.stream_ptr(beam_d))
+        out_d.data_ptr(), out_p.data_ptr(), B, E, L_in, L, 0, cuda_lib.stream_ptr(beam_d))
     cuda_lib.check(err, "beam_merge")
     cuda_lib.launches["beam_merge"] += 1
     return out_d, out_p

@@ -317,6 +317,76 @@ def test_beam_merge_main_shape(dev):
     assert_bitwise(ops.beam_merge(*case, backend="cuda"), ops.beam_merge(*case, backend="torch"))
 
 
+def beam_edge_case(dev, B, E, L, *, seed=0, edge=False):
+    """``beam_case`` over more keys; with ``edge``: NaN and -0.0 in beam and
+    candidates, beam entries ``(inf, id << 1)``, an unsorted beam row, and
+    every third candidate row all pads."""
+    rng = np.random.default_rng(seed)
+    bd, bp, cd, cp = (t.cpu().numpy().copy() for t in beam_case(dev, B, E, L, seed=seed))
+    if edge:
+        for a in (bd, cd):
+            a[rng.uniform(size=a.shape) < 0.1] = np.nan
+            a[rng.uniform(size=a.shape) < 0.1] = -0.0
+            a[rng.uniform(size=a.shape) < 0.05] = 0.0
+        inf_ids = rng.uniform(size=bd.shape) < 0.2
+        bd[inf_ids] = np.inf
+        bp[inf_ids] = rng.integers(0, 500, int(inf_ids.sum())) << 1
+        bd[0] = rng.permutation(bd[0])
+        cd[::3] = np.inf
+        cp[::3] = PAD_PAYLOAD
+    return tuple(torch.as_tensor(a, device=dev) for a in (bd, bp, cd, cp))
+
+
+# Both sides of each boundary of the kernel's layout (N = max(L, E)): one key
+# a lane (N <= 32) or more; one warp a row (N <= 256) or 2, 4, 8, 16 warps
+# with strides >= 256 through shared memory (N = 4096 above 48 KiB of it);
+# E below the keys a lane; the reversal across warps (E > 256); L < E; L_in
+# not a multiple of 4 (scalar loads) beside multiples (16-byte loads).
+@pytest.mark.parametrize("E,L", [(8, 31), (8, 33), (16, 5), (2, 101), (4, 257), (64, 255),
+                                 (64, 256), (64, 257), (64, 1023), (64, 2047), (64, 4093),
+                                 (512, 301), (4096, 3), (1, 3), (1, 2047), (64, 3), (128, 7),
+                                 (128, 2047), (128, 2048), (2048, 4095)])
+@pytest.mark.parametrize("edge", [False, True])
+def test_beam_merge_layout_boundaries(dev, E, L, edge):
+    case = beam_edge_case(dev, 37, E, L, seed=E + L + edge, edge=edge)
+    assert_bitwise(ops.beam_merge(*case, backend="cuda"), ops.beam_merge(*case, backend="torch"))
+
+
+@pytest.mark.parametrize("E,L", [(64, 256), (64, 2048), (16, 40)])
+def test_beam_merge_all_pad_candidates(dev, E, L):
+    """Every candidate row all pads (finished queries): the kernel skips the
+    sort, and the unsorted beam with NaN and (inf, id << 1) entries comes
+    out as the network puts it."""
+    rng = np.random.default_rng(E + L)
+    bd = rng.choice([0.5, 1.0, np.nan, np.inf, -0.0, 0.0], size=(19, E)).astype(np.float32)
+    bp = (rng.integers(0, 500, (19, E)) << 1).astype(np.int32)
+    bp[:, ::4] = PAD_PAYLOAD
+    cd = np.full((19, L), np.inf, np.float32)
+    cp = np.full((19, L), PAD_PAYLOAD, np.int32)
+    case = tuple(torch.as_tensor(a, device=dev) for a in (bd, bp, cd, cp))
+    assert_bitwise(ops.beam_merge(*case, backend="cuda"), ops.beam_merge(*case, backend="torch"))
+
+
+def test_beam_merge_unaligned_rows(dev):
+    """Tensors whose data starts off a 16-byte boundary take the scalar loads."""
+    B, E, L = 11, 64, 256
+    case = beam_edge_case(dev, B, E, L, seed=9, edge=True)
+    moved = []
+    for t in case:
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        moved.append(view)
+    assert moved[0].data_ptr() % 16 != 0
+    assert_bitwise(ops.beam_merge(*moved, backend="cuda"), ops.beam_merge(*case, backend="torch"))
+
+
+def test_beam_merge_paper_degree_shape(dev):
+    """The paper's degree 256 + 256 with W = 4: L = 2048, eight warps a row."""
+    case = beam_edge_case(dev, 10_000, 64, 2048, seed=4)
+    assert_bitwise(ops.beam_merge(*case, backend="cuda"), ops.beam_merge(*case, backend="torch"))
+
+
 def test_beam_merge_rejects_non_power_of_two(dev):
     bd, bp, cd, cp = beam_case(dev, 2, 8, 8)
     with pytest.raises(ValueError):

@@ -17,6 +17,7 @@ from repro.kernels import expand_score as ref_es
 from repro.kernels import prune_sweep as ref_ps
 from repro.kernels import ref as ref_oracles
 from repro.kernels import util as ref_util
+from repro_torch.kernels import beam_merge as port_bm
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as port_oracles
 from repro_torch.kernels import util as port_util
@@ -134,6 +135,47 @@ def test_beam_merge_rejects_non_power_of_two():
     bd, bp, cd, cp = map(torch.as_tensor, beam_case(0, 2, 8, 8))
     with pytest.raises(ValueError):
         ops.beam_merge(bd[:, :6], bp[:, :6], cd, cp)
+
+
+def edge_beams(rng, B, E):
+    """Unsorted beams with NaN, -0.0, +0.0 and ``(inf, id << 1)`` entries."""
+    bd = rng.choice([0.5, 1.0, np.nan, np.inf, -0.0, 0.0], size=(B, E)).astype(np.float32)
+    bp = (rng.integers(0, 500, (B, E)) << 1).astype(np.int32)
+    bp[:, ::4] = PAD_PAYLOAD
+    return bd, bp
+
+
+@pytest.mark.parametrize("E,L", [(8, 8), (16, 5), (64, 256)])
+def test_beam_merge_edge_keys_match_reference(E, L):
+    """NaN and -0.0 in beam and candidates: the port's network puts them
+    where the reference's does."""
+    rng = np.random.default_rng(E + L)
+    bd, bp = edge_beams(rng, 6, E)
+    cd = rng.choice([0.5, 1.0, np.nan, np.inf, -0.0, 0.0], size=(6, L)).astype(np.float32)
+    cp = (rng.integers(0, 500, (6, L)) << 1).astype(np.int32)
+    case = (bd, bp, cd, cp)
+    want = ref_bm.beam_merge_xla(*map(jnp.asarray, case))
+    for g, w in zip(ops.beam_merge(*map(torch.as_tensor, case)), want):
+        assert_bitwise(g, w)
+
+
+@pytest.mark.parametrize("E,L", [(8, 8), (16, 5), (64, 256)])
+def test_beam_merge_all_pad_candidates_skip_the_sort(E, L):
+    """The CUDA kernel skips the sort where every candidate is
+    ``(+inf, PAD_PAYLOAD)``: the whole network then equals the reversed
+    minimum and the merge stages alone, on any beam, and the reference's."""
+    rng = np.random.default_rng(E * L)
+    bd, bp = edge_beams(rng, 6, E)
+    cd = np.full((6, L), np.inf, np.float32)
+    cp = np.full((6, L), PAD_PAYLOAD, np.int32)
+    got = ops.beam_merge(*map(torch.as_tensor, (bd, bp, cd, cp)))
+    want = ref_bm.beam_merge_xla(*map(jnp.asarray, (bd, bp, cd, cp)))
+    pads_d = torch.full((6, E), torch.inf)
+    pads_p = torch.full((6, E), PAD_PAYLOAD, dtype=torch.int32)
+    no_sort = port_bm._merge_block(torch.as_tensor(bd), torch.as_tensor(bp), pads_d, pads_p)
+    for g, w, s in zip(got, want, no_sort):
+        assert_bitwise(g, w)
+        assert_bitwise(g, s.numpy())
 
 
 # ------------------------------------------------------------------- dedup
