@@ -60,7 +60,32 @@ the script exits non-zero without printing a result):
    Hi-PNG answer passes the predicate, the pre-filter's recall is 1, the
    post-filter's ``backend="cuda"`` equals ``"torch"``; (e) ``build_exact``
    at n = 1,000: prune backends cuda and torch give the same graph, and one
-   structural-heredity check (Thm 3.5) holds.
+   structural-heredity check (Thm 3.5) holds;
+7. streaming updates at full width on the kernels: (a) 10 % churn of phase
+   4's 50,000-row index (5,000 random live ids deleted with repair, then
+   5,000 new rows from the corpus's own mixture inserted, as the
+   reference's churn contract draws them): ``backend="cuda"`` equals
+   ``"torch"`` bitwise on every store array after the delete and after the
+   insert, no deleted id surfaces, the capacity is unchanged (slots
+   reused), recall@10 per semantics at ef = 64 over 1,000 queries a
+   semantics is at least that of a fresh build of the same live set minus
+   0.02, and ``compact()`` gives the same answer sets after id remapping;
+   beside it, measured and not held to a bar, the same churn with 5,000
+   rows of ``make_corpus`` with another seed (new cluster centres, which
+   one batch of mutually invisible rows cannot wire among themselves)
+   against its own fresh build;
+   (b) 1 % churn of phase 3's 1M index (10,000 ids deleted with repair,
+   10,000 rows of the corpus's mixture in one ``insert_batch``), the
+   delete, insert and compact
+   timed, the touched rows, repair blocks and offer rounds (and their
+   seconds) printed with the
+   launches of ``prune_sweep``, ``expand_score`` and ``beam_merge`` over
+   the delete and insert (counted from 0), then QPS, iterations and
+   recall@10 of the 10,000 mixed queries against ``brute_force`` over the
+   live rows; tripwires: mean recall@10 ≥ 0.02, no deleted id surfaces,
+   capacity unchanged; (c) 1,000 rows inserted into phase 3's index
+   re-encoded as int8 + rerank and as pq + rerank: ``cuda`` equals
+   ``torch`` bitwise.
 
 The last line is ``{"ok": true, "device": {...}}``.  Nothing here imports
 JAX or the reference package.
@@ -95,6 +120,10 @@ N_L2 = 65_536                  # corpus rows of the pairwise matrix (all 1M rows
 N_PLAIN = 1_000                # queries the plain filtered_topk is checked and timed on
 K_SCAN = 10
 N_EXACT = 1_000                # rows of the build_exact check
+N_CHURN_50K = 5_000            # phase 7(a): 10 % of phase 4's 50,000 rows
+N_CHURN_1M = 10_000            # phase 7(b): 1 % of phase 3's 1M rows
+N_QUANT_INSERT = 1_000         # phase 7(c): rows inserted into the int8 and pq indexes
+UPDATE_KERNELS = ("prune_sweep", "expand_score", "beam_merge")   # phase 7's path
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 PEAK_TF32_PER_S = 495e12       # H100 SXM TF32 on the tensor cores, dense
@@ -846,6 +875,195 @@ def phase6_bench(dev, main) -> tuple[dict, dict]:
     return rows, launches
 
 
+def same_store(a, b) -> bool:
+    """Every array of two indexes' stores equal bit for bit."""
+    sa, sb = a.store, b.store
+    if (sa.rerank is None) != (sb.rerank is None):
+        return False
+    pairs = [(sa.nbrs, sb.nbrs), (sa.status, sb.status), (sa.intervals, sb.intervals),
+             (sa.alive, sb.alive), (sa.free, sb.free), (sa.plane.data, sb.plane.data)]
+    if sa.rerank is not None:
+        pairs.append((sa.rerank.data, sb.rerank.data))
+    return all(bits_equal(x, y) for x, y in pairs)
+
+
+def surfaced(res, ids) -> bool:
+    """Whether any of ``ids`` is among the answers of ``res``."""
+    import torch
+
+    return bool(torch.isin(res.ids[res.ids >= 0], ids).any())
+
+
+def timed(fn):
+    """``(result, seconds)`` of ``fn()`` with the card synchronised around it."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def more_rows(n: int, seed: int, extra: int, dev):
+    """``extra`` new rows from the mixture of ``make_corpus(n, seed)``: a
+    longer draw with the same seed (the cluster centres come first in its
+    stream), its rows past ``n``."""
+    from repro_torch.data import CorpusConfig, make_corpus
+
+    x, ints = make_corpus(CorpusConfig(n=n + extra, dim=128, seed=seed), device=dev)
+    return x[n:].contiguous(), ints[n:].contiguous()
+
+
+def churn_recalls(m, queries, dev) -> tuple[dict, dict, float]:
+    """recall@10 per semantics of a churned index and of a fresh build of
+    its live set (same config), and the fresh build's seconds."""
+    import torch
+
+    from repro_torch.core import UGIndex
+
+    qv, qi, sems = queries
+    recalls = recall_per_semantics(m.search_mixed(qv, qi, sems, **SEARCH),
+                                   scored_queries(m, qv, qi, sems))
+    live = torch.nonzero(m.alive).flatten()
+    fresh, seconds = timed(lambda: UGIndex.build(m.x[live], m.intervals[live], m.config,
+                                                 device=dev))
+    fresh_recalls = recall_per_semantics(fresh.search_mixed(qv, qi, sems, **SEARCH),
+                                         scored_queries(fresh, qv, qi, sems))
+    return recalls, fresh_recalls, seconds
+
+
+def phase7_updates(dev, main, check50, smi) -> dict:
+    """Streaming updates on the kernels; returns the update path's launches."""
+    import statistics
+
+    import torch
+
+    from repro_torch.core import updates
+    from repro_torch.data import CorpusConfig, make_corpus
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(70)
+
+    # (a) 10 % churn of the 50,000-row index, kernels against plain versions
+    idx50 = check50["idx"]
+    qv50, qi50, sems50 = check50["queries"]
+    dels = torch.randperm(idx50.n, generator=g, device=dev)[:N_CHURN_50K].to(torch.int32)
+    new_x, new_iv = more_rows(N_CHECK, 1, N_CHURN_50K, dev)
+    out, secs = {}, {}
+    for backend in ("cuda", "torch"):
+        stats = {}
+        d, secs[f"delete_{backend}"] = timed(
+            lambda: idx50.delete(dels, backend=backend, stats=stats))
+        m, secs[f"insert_{backend}"] = timed(lambda: d.insert(
+            new_x, new_iv, backend=backend, search_backend=backend, stats=stats))
+        out[backend] = (d, m)
+    bitwise = [same_store(a, b) for a, b in zip(out["cuda"], out["torch"])]
+    d, m = out["cuda"]
+    del out
+    slots_reused = m.capacity == idx50.capacity and m.n == idx50.n
+    hidden = not surfaced(d.search_mixed(qv50, qi50, sems50, **SEARCH), dels)
+    res = m.search_mixed(qv50, qi50, sems50, **SEARCH)
+    live_only = bool(m.alive[res.ids[res.ids >= 0].long()].all())
+    recalls, fresh_recalls, fresh_s = churn_recalls(m, check50["queries"], dev)
+    comp = m.compact()
+    live = torch.nonzero(m.alive).flatten()
+    remap = torch.full((m.capacity,), -1, dtype=torch.long, device=dev)
+    remap[live] = torch.arange(live.numel(), device=dev)
+    res_c = comp.search_mixed(qv50, qi50, sems50, **SEARCH)
+    mapped = torch.where(res.ids >= 0, remap[res.ids.clamp(min=0).long()], -1)
+    same_sets = all(set(a[a >= 0].tolist()) == set(b[b >= 0].tolist())
+                    for a, b in zip(mapped.cpu(), res_c.ids.cpu()))
+    # the same churn with rows from new cluster centres: measured only
+    shifted_x, shifted_iv = make_corpus(CorpusConfig(n=N_CHURN_50K, dim=128, seed=71),
+                                        device=dev)
+    shifted = churn_recalls(d.insert(shifted_x, shifted_iv), check50["queries"], dev)
+    emit(phase=7, part="a", card=smi, n=idx50.n, deleted=N_CHURN_50K, inserted=N_CHURN_50K,
+         seconds=secs, touched_rows=stats["touched_rows"], repair_blocks=stats["repair_blocks"],
+         offer_rounds=stats["offer_rounds"], capacity=m.capacity,
+         recall_at_10=recalls, recall_at_10_fresh_build=fresh_recalls,
+         fresh_build_seconds=fresh_s,
+         other_seed_rows=dict(recall_at_10=shifted[0], recall_at_10_fresh_build=shifted[1]),
+         checks=dict(cuda_equals_torch_after_delete=bitwise[0],
+                     cuda_equals_torch_after_insert=bitwise[1], deleted_never_surface=hidden,
+                     dead_slots_never_surface=live_only, slots_reused=slots_reused,
+                     compact_same_answer_sets=same_sets))
+    for step, ok in zip(("delete", "insert"), bitwise):
+        check(ok, f"7a: {step}: backend='cuda' != 'torch'")
+    check(slots_reused, "7a: capacity or live count moved")
+    check(hidden and live_only, "7a: a deleted id or a dead slot surfaced")
+    for s, r in recalls.items():
+        check(r >= fresh_recalls[s] - 0.02,
+              f"7a: {s} recall@10 {r} below the fresh build's {fresh_recalls[s]} - 0.02")
+    check(same_sets, "7a: compact() changed an answer set")
+    del d, m, comp, res, res_c
+
+    # (b) 1 % churn of the 1M index on the kernels, timed
+    idx = main["idx"]
+    qv, qi, sems = main["queries"]
+    nq = qv.shape[0]
+    dels = torch.randperm(idx.n, generator=g, device=dev)[:N_CHURN_1M].to(torch.int32)
+    new_x, new_iv = more_rows(N_MAIN, 0, N_CHURN_1M, dev)
+    ops.reset_launches()                                   # the update path's run
+    stats = {}
+    d, delete_s = timed(lambda: idx.delete(dels, stats=stats))
+    # the insert's reverse-offer rounds timed inside it, the card synchronised
+    # around them
+    rounds, offer_rounds = {}, updates._offer_rounds
+
+    def timed_rounds(*args, **kw):
+        n, rounds["seconds"] = timed(lambda: offer_rounds(*args, **kw))
+        return n
+
+    updates._offer_rounds = timed_rounds
+    try:
+        m, insert_s = timed(lambda: d.insert(new_x, new_iv, stats=stats))
+    finally:
+        updates._offer_rounds = offer_rounds
+    launches = dict(ops.launches)
+    for name in UPDATE_KERNELS:
+        check(launches.get(name, 0) > 0, f"{name} was not launched on the update path")
+    check(m.capacity == idx.capacity and m.n == idx.n, "7b: capacity or live count moved")
+    check(not surfaced(d.search_mixed(qv, qi, sems, **SEARCH), dels),
+          "7b: a deleted id surfaced")
+    m.search_mixed(qv, qi, sems, **SEARCH)                   # warm-up
+    seconds = []
+    for _ in range(TIMED_BATCHES):
+        res, t = timed(lambda: m.search_mixed(qv, qi, sems, **SEARCH))
+        seconds.append(t)
+    check(bool(m.alive[res.ids[res.ids >= 0].long()].all()), "7b: a dead slot surfaced")
+    recalls = recall_per_semantics(res, scored_queries(m, qv, qi, sems))
+    mean_recall = mean(recalls.values())
+    check(mean_recall >= 0.02, f"7b: mean recall@10 {mean_recall} < 0.02 after churn")
+    _, compact_s = timed(lambda: m.compact())
+    med = statistics.median(seconds)
+    emit(phase=7, part="b", card=smi, n=idx.n, d=128, deleted=N_CHURN_1M, inserted=N_CHURN_1M,
+         delete_repair_seconds=delete_s, insert_seconds=insert_s, compact_seconds=compact_s,
+         touched_rows=stats["touched_rows"], repair_blocks=stats["repair_blocks"],
+         offer_rounds=stats["offer_rounds"], offer_rounds_seconds=rounds["seconds"],
+         launches=launches, queries=nq, search_seconds=seconds, qps=nq / med, iters=res.iters,
+         mean_steps=float(res.steps.float().mean()), recall_at_10=recalls,
+         mean_recall_at_10=mean_recall, mean_recall_at_10_before=mean(main["recalls"].values()),
+         capacity=m.capacity, checks=dict(deleted_never_surface=True, slots_reused=True))
+    del d, m, res
+
+    # (c) inserts into the int8 + rerank and pq + rerank indexes
+    new_x, new_iv = make_corpus(CorpusConfig(n=N_QUANT_INSERT, dim=128, seed=73), device=dev)
+    quant = {}
+    for tag in ("int8", "pq"):
+        idx_t = idx.with_dtype(tag, rerank=True)
+        got, cuda_s = timed(lambda: idx_t.insert(new_x, new_iv, backend="cuda",
+                                                 search_backend="cuda"))
+        want, torch_s = timed(lambda: idx_t.insert(new_x, new_iv, backend="torch",
+                                                   search_backend="torch"))
+        check(same_store(got, want), f"7c: {tag} insert: backend='cuda' != 'torch'")
+        quant[tag] = dict(seconds_cuda=cuda_s, seconds_torch=torch_s, capacity=got.capacity,
+                          n=got.n, bitwise=True)
+        del idx_t, got, want
+    emit(phase=7, part="c", card=smi, inserted=N_QUANT_INSERT, planes=quant)
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -866,6 +1084,7 @@ def main() -> int:
     path_launches["f32"] = main_path["launches"]
     scan_rows, path_launches["bench"] = phase6_bench(dev, main_path)
     rows.update(scan_rows)
+    update_launches = phase7_updates(dev, main_path, check50, smi)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -877,7 +1096,8 @@ def main() -> int:
             launches=path_launches[path][name], **CHECKED[name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
-            **{k: r[k] for k in EXTRA_KEYS if k in r}))
+            **{k: r[k] for k in EXTRA_KEYS if k in r},
+            **({"launches_updates": update_launches[name]} if name in UPDATE_KERNELS else {})))
     emit(seconds=time.perf_counter() - t_start, card=smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

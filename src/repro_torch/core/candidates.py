@@ -143,6 +143,11 @@ def attribute_width(ef_attribute: int) -> int:
     return 8 * max(ef_attribute // 8, 1)
 
 
+def candidate_pool_width(ef_spatial: int, ef_attribute: int) -> int:
+    """Iteration-0 candidate-pool width of :func:`generate_candidates`."""
+    return ef_spatial + attribute_width(ef_attribute)
+
+
 def attribute_candidates(intervals: torch.Tensor, ef_attribute: int) -> torch.Tensor:
     """Alg. 1 lines 3-10: neighbors in the four interval-derived sort orders."""
     n = intervals.shape[0]

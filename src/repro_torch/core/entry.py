@@ -70,6 +70,57 @@ def build_entry_index(
     return EntryIndex(order, l_s, sv, si, pv, pi)
 
 
+def _entry_if(eidx: EntryIndex, ql: torch.Tensor, qr: torch.Tensor) -> torch.Tensor:
+    """IF/RF branch of Alg. 5: the first position with ``l ≥ q.l``; its
+    suffix-min right endpoint certifies a valid node or NULL (Lemma 4.3)."""
+    n = eidx.l_sorted.shape[0]
+    i = torch.searchsorted(eidx.l_sorted, ql.contiguous(), side="left")
+    ok = i < n
+    ic = i.clamp(0, n - 1)
+    ok = ok & (eidx.suffmin_r_val[ic] <= qr)
+    return torch.where(ok, eidx.suffmin_r_id[ic], -1).to(torch.int32)
+
+
+def _entry_is(eidx: EntryIndex, ql: torch.Tensor, qr: torch.Tensor) -> torch.Tensor:
+    """IS/RS branch of Alg. 5 (dual: the prefix max over ``l ≤ q.l``)."""
+    n = eidx.l_sorted.shape[0]
+    i = torch.searchsorted(eidx.l_sorted, ql.contiguous(), side="right") - 1
+    ok = i >= 0
+    ic = i.clamp(0, n - 1)
+    ok = ok & (eidx.prefmax_r_val[ic] >= qr)
+    return torch.where(ok, eidx.prefmax_r_id[ic], -1).to(torch.int32)
+
+
+def get_entry_flags(eidx: EntryIndex, q_interval: torch.Tensor,
+                    sem_flags: torch.Tensor) -> torch.Tensor:
+    """Alg. 5 with runtime per-query semantics: ``sem_flags`` (…,) int32
+    picks the IF or IS branch per query; each lane equals the static path's."""
+    ql, qr = q_interval[..., 0], q_interval[..., 1]
+    return torch.where(iv.is_filter_flag(sem_flags), _entry_if(eidx, ql, qr),
+                       _entry_is(eidx, ql, qr)).to(torch.int32)
+
+
+def get_entry(eidx: EntryIndex, q_interval: torch.Tensor, sem: iv.Semantics) -> torch.Tensor:
+    """Alg. 5 for a batch of query intervals (…, 2) → (…,) int32 ids, -1
+    where no valid node exists (the NULL case of Lemma 4.3)."""
+    ql, qr = q_interval[..., 0], q_interval[..., 1]
+    if sem in (iv.Semantics.IF, iv.Semantics.RF):
+        return _entry_if(eidx, ql, qr)
+    return _entry_is(eidx, ql, qr)
+
+
+def get_entry_batch(eidx: EntryIndex, q_interval: torch.Tensor, sem: iv.Semantics,
+                    width: int = 1) -> torch.Tensor:
+    """Widened Alg. 5 for one semantics: up to ``width`` distinct valid
+    entries per query, ``-1``-padded; column 0 equals :func:`get_entry`."""
+    width = max(int(width), 1)
+    if sem in (iv.Semantics.IF, iv.Semantics.RF):
+        ids = _entry_batch_if(eidx, q_interval, width)
+    else:
+        ids = _entry_batch_is(eidx, q_interval, width)
+    return _mask_duplicate_entries(ids)
+
+
 def _entry_batch_if(eidx: EntryIndex, q_interval: torch.Tensor, width: int) -> torch.Tensor:
     n = eidx.l_sorted.shape[0]
     ql = q_interval[..., 0].contiguous()

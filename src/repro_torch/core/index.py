@@ -2,7 +2,11 @@
 
 One physical graph with a per-edge semantic bitmask answers IFANN, ISANN,
 RFANN and RSANN queries.  The index is a thin host-side handle around one
-:class:`~repro_torch.core.store.IndexStore`.
+:class:`~repro_torch.core.store.IndexStore`.  Its arrays are sized to
+``capacity`` slots; after streaming updates (``insert``/``delete``,
+``core/updates.py``) ``alive`` marks the live nodes and ``free`` the slots
+the allocator may hand out.  A built or loaded static index leaves both
+``None``.
 
 The graph is always built from the f32 vectors; ``dtype`` selects the scan
 plane the search scores against (``f32``, ``bf16``, ``int8``, ``pq``) and
@@ -12,7 +16,8 @@ plane the search scores against (``f32``, ``bf16``, ``int8``, ``pq``) and
 ``meta.json``): ``x`` holds the scan plane in its own dtype (bf16 as a
 uint16 bit view), ``intervals`` float32, ``nbrs`` int32, ``status`` uint8,
 and where present ``x_scale``/``x_zero`` (int8), ``x_codebooks`` (pq) and
-``rerank`` (f32).  An index crosses between the two packages in either
+``rerank`` (f32), and on a mutated index ``alive``/``free`` (bool).  An
+index crosses between the two packages in either
 direction, and a saved plane is read back, never encoded again.
 ``meta.json``'s ``prune_backend`` is written under the reference's name for
 the same role (:data:`SAVED_BACKEND`) and read back as the port's
@@ -34,7 +39,7 @@ from repro_torch.core.exact import DenseGraph
 from repro_torch.core.search import SearchResult, brute_force
 from repro_torch.core.search import search as core_search
 from repro_torch.core.search import search_mixed as core_search_mixed
-from repro_torch.core.entry import build_entry_index
+from repro_torch.core.entry import EntryIndex, build_entry_index
 from repro_torch.core.store import IndexStore, VectorPlane, as_tensor, make_store
 from repro_torch.kernels.util import no_tf32, resolve_device
 
@@ -83,6 +88,18 @@ class UGIndex:
     @property
     def graph(self) -> DenseGraph:
         return self.store.graph
+
+    @property
+    def entry(self) -> EntryIndex | None:
+        return self.store.entry
+
+    @property
+    def alive(self) -> torch.Tensor | None:
+        return self.store.alive
+
+    @property
+    def free(self) -> torch.Tensor | None:
+        return self.store.free
 
     @property
     def device(self) -> torch.device:
@@ -155,12 +172,37 @@ class UGIndex:
         (the rerank plane when present, else the decoded scan plane)."""
         no_tf32()
         return brute_force(self.x, self.intervals, _on(q_v, self.device),
-                           _on(q_int, self.device), sem=sem, k=k)
+                           _on(q_int, self.device), sem=sem, k=k, alive=self.alive)
+
+    # ---------------------------------------------------------------- updates
+    def insert(self, new_x, new_intervals, **kw) -> "UGIndex":
+        """Batched streaming insert (``core/updates.py``); a new UGIndex."""
+        from repro_torch.core.updates import insert_batch
+
+        return insert_batch(self, new_x, new_intervals, **kw)
+
+    def delete(self, ids, **kw) -> "UGIndex":
+        """Batched tombstone delete and repair; a new UGIndex."""
+        from repro_torch.core.updates import delete_batch
+
+        return delete_batch(self, ids, **kw)
+
+    def compact(self) -> "UGIndex":
+        """Drop dead slots and remap the graph; a static UGIndex."""
+        from repro_torch.core.updates import compact
+
+        return compact(self)
 
     # ------------------------------------------------------------------ stats
     @property
-    def n(self) -> int:
+    def capacity(self) -> int:
+        """Allocated slots (live, tombstoned and free)."""
         return self.store.capacity
+
+    @property
+    def n(self) -> int:
+        """Live node count (the capacity for a static index)."""
+        return self.store.live_count()
 
     def memory_bytes(self) -> int:
         """Graph + entry + allocator bytes (the index overhead; the vector
@@ -169,7 +211,8 @@ class UGIndex:
         return int(m["graph"] + m["entry"] + m["masks"])
 
     def vector_memory_bytes(self) -> dict:
-        """Scan-plane and rerank-plane bytes, and scan-plane bytes per vector."""
+        """Scan-plane and rerank-plane bytes, and scan-plane bytes per live
+        vector (growth must not halve the figure)."""
         m = self.store.memory_bytes()
         return {
             "plane": m["plane"],
@@ -181,6 +224,9 @@ class UGIndex:
         g = self.graph
         d_if = g.degree(iv.FLAG_IF).cpu().numpy()
         d_is = g.degree(iv.FLAG_IS).cpu().numpy()
+        if self.alive is not None:                          # live rows only
+            live = self.alive.cpu().numpy()
+            d_if, d_is = d_if[live], d_is[live]
         return {
             "mean_if": float(d_if.mean()),
             "mean_is": float(d_is.mean()),
@@ -210,6 +256,10 @@ class UGIndex:
             arrays["x_codebooks"] = npy(st.plane.codebooks)
         if st.rerank is not None:
             arrays["rerank"] = npy(st.rerank.data)
+        if st.alive is not None:
+            arrays["alive"] = npy(st.alive)
+            arrays["free"] = (np.zeros(arrays["alive"].shape, bool) if st.free is None
+                              else npy(st.free))
         np.savez_compressed(path / "index.npz", **arrays)
         meta = dataclasses.asdict(self.config)
         meta["prune_backend"] = _rename_backend(SAVED_BACKEND, meta["prune_backend"])
@@ -221,7 +271,7 @@ class UGIndex:
     def load(cls, path: str | pathlib.Path, device=None) -> "UGIndex":
         """Read an index the reference (or the port) saved.  The planes are
         taken as stored (never encoded again); the entry index is rebuilt
-        from the intervals."""
+        from the intervals over the live rows."""
         dev = resolve_device(device)
         path = pathlib.Path(path)
         meta = json.loads((path / "meta.json").read_text())
@@ -231,10 +281,6 @@ class UGIndex:
         cfg = UGConfig(**meta)
         with np.load(path / "index.npz") as blob:
             arrays = {k: blob[k] for k in blob.files}
-        if "alive" in arrays or "free" in arrays:
-            raise NotImplementedError(
-                "tombstoned indexes (alive/free arrays) are not ported yet "
-                "(ROADMAP.md, queue 1, the 'core/updates.py' item)")
         on = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(dev)
         if tag == "bf16":                       # stored as a uint16 bit view (see save)
             x = on(arrays["x"].view(np.int16)).view(torch.bfloat16)
@@ -244,10 +290,13 @@ class UGIndex:
         plane = VectorPlane(tag, x, opt("x_scale"), opt("x_zero"), opt("x_codebooks"))
         rerank = VectorPlane("f32", on(arrays["rerank"])) if "rerank" in arrays else None
         intervals = as_tensor(arrays["intervals"], torch.float32, dev)
+        alive = as_tensor(arrays["alive"], torch.bool, dev) if "alive" in arrays else None
+        free = as_tensor(arrays["free"], torch.bool, dev) if "free" in arrays else None
         store = IndexStore(plane=plane, rerank=rerank, intervals=intervals,
                            nbrs=as_tensor(arrays["nbrs"], torch.int32, dev),
                            status=as_tensor(arrays["status"], torch.uint8, dev),
-                           entry=build_entry_index(intervals))
+                           entry=build_entry_index(intervals, node_mask=alive),
+                           alive=alive, free=free)
         return cls(store, cfg, build_seconds)
 
 

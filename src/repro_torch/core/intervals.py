@@ -8,6 +8,11 @@ Every object carries an interval ``I_o = [l, r]``; every query carries
 * RFANN:  IFANN with point object intervals ``I_o = [a, a]``
 * RSANN:  ISANN with a point query interval ``q.I = [t, t]``
 
+The URNG witness conditions (Def. 3.1) are:
+
+* ``Φ_IF(u, v, w): I_w ⊆ I_u ∪ I_v``   with ``∪`` the hull
+* ``Φ_IS(u, v, w): I_u ∩ I_v ⊆ I_w``   considered only when ``I_u ∩ I_v ≠ ∅``
+
 All functions broadcast: intervals are tensors whose last axis has size 2
 (``[..., 0] = l``, ``[..., 1] = r``).
 """
@@ -59,6 +64,19 @@ def contains(outer: torch.Tensor, inner: torch.Tensor) -> torch.Tensor:
     return (outer[..., 0] <= inner[..., 0]) & (inner[..., 1] <= outer[..., 1])
 
 
+def phi_if(iu: torch.Tensor, iv: torch.Tensor, iw: torch.Tensor) -> torch.Tensor:
+    """IF witness condition ``I_w ⊆ I_u ∪ I_v`` (Def. 3.1)."""
+    return contains(hull(iu, iv), iw)
+
+
+def phi_is(iu: torch.Tensor, iv: torch.Tensor, iw: torch.Tensor) -> torch.Tensor:
+    """IS witness condition ``I_u ∩ I_v ⊆ I_w``, false where the
+    intersection is empty (Alg. 3 clears the IS bit there)."""
+    inter = intersection(iu, iv)
+    nonempty = ~is_empty(inter)
+    return nonempty & (iw[..., 0] <= inter[..., 0]) & (iw[..., 1] >= inter[..., 1])
+
+
 def predicate(sem: Semantics, obj: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
     """Query validity predicate; ``obj`` broadcasts against ``query``."""
     if sem in (Semantics.IF, Semantics.RF):
@@ -102,3 +120,24 @@ def predicate_by_flag(flags: torch.Tensor, obj: torch.Tensor, query: torch.Tenso
     leading dims of ``obj``/``query``.  Both directions are evaluated and
     selected per element, so a uniform-flag batch equals :func:`predicate`."""
     return torch.where(is_filter_flag(flags), contains(query, obj), contains(obj, query))
+
+
+def query_valid_mask_by_flag(flags: torch.Tensor, intervals: torch.Tensor,
+                             q_intervals: torch.Tensor) -> torch.Tensor:
+    """Per-query validity of every object: (B,) x (n, 2) x (B, 2) -> (B, n)."""
+    return predicate_by_flag(flags[:, None], intervals[None, :, :], q_intervals[:, None, :])
+
+
+def sample_uniform_intervals(gen: torch.Generator, n: int,
+                             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Uniform interval model of the paper's analysis (§3.2, App. A): two
+    i.i.d. U(0, 1) endpoints per object, sorted, on ``gen``'s device."""
+    pts = torch.rand((n, 2), generator=gen, dtype=dtype, device=gen.device)
+    return torch.sort(pts, dim=-1).values
+
+
+def sample_point_intervals(gen: torch.Generator, n: int,
+                           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Point intervals ``[a, a]``, ``a ~ U(0, 1)``: the RFANN special case."""
+    a = torch.rand((n, 1), generator=gen, dtype=dtype, device=gen.device)
+    return torch.cat([a, a], dim=-1)

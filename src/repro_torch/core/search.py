@@ -16,9 +16,10 @@ each row's answer is bitwise independent of the rest of the batch: a mixed
 batch returns exactly the per-semantics answers.
 
 A quantized scan plane (bf16, int8, pq) steers the traversal; with an f32
-rerank plane the surviving beam is re-scored exactly before the top-k.  Only
-the static index (no tombstones) is ported so far; the reference's
-one-node-per-step ``legacy`` loop is not.
+rerank plane the surviving beam is re-scored exactly before the top-k.  On
+a store with an ``alive`` mask (streaming updates, ``core/updates.py``)
+tombstoned nodes are scored and traversed but never surface.  The
+reference's one-node-per-step ``legacy`` loop is not ported.
 """
 from __future__ import annotations
 
@@ -144,7 +145,7 @@ def _make_fused_step(plane, intervals, nbrs, status, q32, q_int, sem_flags, *, W
 
 
 def _beam_search_fused(plane, rerank, intervals, nbrs, status, entry_ids, q_v, q_int,
-                       sem_flags, *, ef: int, k: int, max_steps: int, width: int,
+                       sem_flags, alive, *, ef: int, k: int, max_steps: int, width: int,
                        backend: str) -> SearchResult:
     """Fused multi-expansion Alg. 4.
 
@@ -155,7 +156,11 @@ def _beam_search_fused(plane, rerank, intervals, nbrs, status, entry_ids, q_v, q
 
     With a rerank plane the scan plane's distances steer the traversal
     only: the surviving beam is re-scored against the exact f32 plane
-    (``E`` row fetches per query, once) before the top-k."""
+    (``E`` row fetches per query, once) before the top-k.  ``alive``
+    (``(n,)`` bool or ``None``) keeps tombstoned beam entries out of the
+    result: the reference's top-k of the negated masked distances becomes a
+    stable ascending sort and a slice, which keep the lowest slot first on
+    ties, so an all-live mask gives the static path's result bit for bit."""
     n = plane.data.shape[0]
     B = q_v.shape[0]
     dev = q_v.device
@@ -192,19 +197,26 @@ def _beam_search_fused(plane, rerank, intervals, nbrs, status, entry_ids, q_v, q
         ok = torch.isfinite(beam_d)
         idx = torch.where(ok, all_ids, -1).to(torch.int32).contiguous()
         beam_d = ops.expand_score(rerank.data, idx, q32, backend=backend)
-        vals, sel = torch.sort(torch.where(ok, beam_d, torch.inf), dim=-1, stable=True)
-        dist = vals[:, :k]
-        ids = torch.where(torch.isfinite(dist), torch.gather(all_ids, 1, sel[:, :k]), -1)
+        if alive is not None:
+            ok = ok & alive[all_ids.clamp(0, n - 1).long()]
+        return _masked_topk(all_ids, beam_d, ok, steps, it, k)
+    if alive is None:
+        dist = beam_d[:, :k]                               # the beam is sorted
+        ids = torch.where(torch.isfinite(dist), beam_p[:, :k] >> 1, -1)
         return SearchResult(ids, dist, steps, it)
-    dist = beam_d[:, :k]                                   # the beam is sorted
-    ids = torch.where(torch.isfinite(dist), beam_p[:, :k] >> 1, -1)
+    # Tombstoned entries routed the search but never surface.
+    all_ids = beam_p >> 1
+    ok = torch.isfinite(beam_d) & alive[all_ids.clamp(0, n - 1).long()]
+    return _masked_topk(all_ids, beam_d, ok, steps, it, k)
+
+
+def _masked_topk(all_ids, beam_d, ok, steps, it, k: int) -> SearchResult:
+    """The ``k`` smallest of ``beam_d`` where ``ok``, ids ``-1`` where fewer
+    pass: a stable ascending sort and a slice."""
+    vals, sel = torch.sort(torch.where(ok, beam_d, torch.inf), dim=-1, stable=True)
+    dist = vals[:, :k]
+    ids = torch.where(torch.isfinite(dist), torch.gather(all_ids, 1, sel[:, :k]), -1)
     return SearchResult(ids, dist, steps, it)
-
-
-def _static_only(store) -> None:
-    if store.alive is not None or store.free is not None:
-        raise NotImplementedError(
-            "tombstoned stores are not ported yet (ROADMAP.md queue 1, item 8 'core/updates.py')")
 
 
 def beam_search_flags(store, entry_ids, q_v, q_int, sem_flags, *, ef: int, k: int,
@@ -216,15 +228,15 @@ def beam_search_flags(store, entry_ids, q_v, q_int, sem_flags, *, ef: int, k: in
     ``entry_ids`` is ``(B,)`` or ``(B, We)`` int32 (Alg. 5); ``max_steps=0``
     derives the default cap 8·ef+32 expansions; ``width`` is the frontier
     width W; ``backend`` picks the kernels (``cuda`` | ``torch``, ``None``
-    = by device)."""
-    _static_only(store)
+    = by device).  A store's ``alive`` mask keeps tombstoned nodes out of
+    the result."""
     backend = resolve_backend(backend, store.nbrs)
     steps_cap = max_steps if max_steps > 0 else 8 * ef + 32
     ent = entry_ids[:, None] if entry_ids.ndim == 1 else entry_ids
     return _beam_search_fused(
         store.plane, store.rerank, store.intervals, store.nbrs, store.status,
         ent.to(torch.int32),
-        q_v, q_int.to(torch.float32), sem_flags.to(torch.int32),
+        q_v, q_int.to(torch.float32), sem_flags.to(torch.int32), store.alive,
         ef=ef, k=k, max_steps=steps_cap, width=width, backend=backend,
     )
 
@@ -328,10 +340,11 @@ def search_step_memory_profile(backend: str = "torch", *, B: int = 8, n: int = 2
 
 # ----------------------------------------------------------------- exact
 def brute_force(x, intervals, q_v, q_int, *, sem: iv.Semantics, k: int,
-                block: int = 8192) -> SearchResult:
+                block: int = 8192, alive=None) -> SearchResult:
     """Exact predicate-filtered top-k (the ground truth): one matmul-identity
     ``(nq, block)`` distance tile per corpus block, the predicate mask, the
-    block's k smallest, folded into the running top-k."""
+    block's k smallest, folded into the running top-k.  ``alive`` (``(n,)``
+    bool) keeps tombstoned and free slots out of the truth set."""
     nq = q_v.shape[0]
     n = x.shape[0]
     dev = x.device
@@ -349,6 +362,8 @@ def brute_force(x, intervals, q_v, q_int, *, sem: iv.Semantics, k: int,
             ok = iv.contains(q_int[:, None, :], ib[None, :, :])
         else:
             ok = iv.contains(ib[None, :, :], q_int[:, None, :])
+        if alive is not None:
+            ok = ok & alive[None, s : s + block]
         db = torch.where(ok, db, torch.inf)
         vals, idx = torch.sort(db, dim=-1, stable=True)
         take = min(k, xb.shape[0])

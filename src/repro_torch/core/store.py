@@ -3,8 +3,11 @@
 It holds a vector plane (the scoring representation of the corpus), an
 optional exact f32 rerank plane, the interval column, the graph
 (``nbrs``/``status``), the entry structure (Alg. 5) and the streaming
-allocator masks.  Only a static index (``alive = free = None``) is ported
-so far.
+allocator state: ``alive`` marks live rows, ``free`` the slots the allocator
+may hand out (``None`` for both on a static index: all live, none free).
+The allocator is here (``masks``/``widen_rows``/``grow``); growth doubles
+the row capacity, so the arrays change shape O(log n) times over any insert
+stream.  The pipelines that use it are in ``core/updates.py``.
 
 Four plane tags: ``f32``; ``bf16`` (2 bytes a dim, widened in registers by
 the expand-score kernel); ``int8`` (per-dimension affine
@@ -26,7 +29,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.entry import EntryIndex, build_entry_index
 from repro_torch.core.exact import DenseGraph
-from repro_torch.kernels.util import no_tf32, resolve_device
+from repro_torch.kernels.beam_merge import next_pow2
+from repro_torch.kernels.util import no_tf32, pad_rows, resolve_device
 
 PLANE_TAGS = ("f32", "bf16", "int8", "pq")
 _QMAX = 127.0           # int8 code range is [-127, 127]; -128 stays unused (symmetric)
@@ -245,12 +249,67 @@ class IndexStore:
     def replace(self, **kw) -> "IndexStore":
         return dataclasses.replace(self, **kw)
 
+    def live_count(self) -> int:
+        """Number of live rows (the capacity when no alive mask is set)."""
+        if self.alive is None:
+            return self.capacity
+        return int(self.alive.sum())
+
     def vectors_f32(self) -> torch.Tensor:
         """Best-precision f32 vectors: the rerank plane when present, else
         the decoded scan plane (the same buffer for an f32 plane)."""
         if self.rerank is not None:
             return self.rerank.data
         return self.plane.decode()
+
+    # ---------------------------------------------------- slot allocator
+    def masks(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The alive and free masks, materialised where they are ``None``
+        (all live, none free)."""
+        cap, dev = self.capacity, self.device
+        alive = self.alive if self.alive is not None else torch.ones(cap, dtype=torch.bool, device=dev)
+        free = self.free if self.free is not None else torch.zeros(cap, dtype=torch.bool, device=dev)
+        return alive, free
+
+    def widen_rows(self, m_full: int) -> "IndexStore":
+        """Neighbor rows widened to the degree-budget bound ``m_if + m_is``
+        with ``-1`` columns: the build trims trailing dead columns, and
+        streaming updates need that headroom back."""
+        r = m_full - self.nbrs.shape[1]
+        if r <= 0:
+            return self
+        cap, dev = self.capacity, self.device
+        return self.replace(
+            nbrs=torch.cat([self.nbrs, torch.full((cap, r), -1, dtype=self.nbrs.dtype, device=dev)], 1),
+            status=torch.cat([self.status, torch.zeros((cap, r), dtype=self.status.dtype, device=dev)], 1))
+
+    def grow(self, need: int, m_full: int) -> "IndexStore":
+        """A store with materialised masks, rows widened to ``m_full`` and
+        at least ``need`` free slots.  Growth doubles the capacity (or more,
+        to the next power of two that holds ``need``).  Virgin slots get the
+        inverted interval ``[2, -2]``, ``-1`` neighbor rows, zero plane codes
+        and ``free=True``; they are never alive and no edge points to them.
+        The entry structure is dropped (the insert rebuilds it)."""
+        alive, free = self.masks()
+        out = self.widen_rows(m_full).replace(alive=alive, free=free)
+        cap = self.capacity
+        n_free = int(free.sum())
+        if n_free >= need:
+            return out
+        new_cap = max(2 * cap, next_pow2(cap + need - n_free))
+        pad_plane = lambda p: None if p is None else dataclasses.replace(
+            p, data=pad_rows(p.data, new_cap, 0))
+        dead_iv = torch.tensor([2.0, -2.0], dtype=self.intervals.dtype, device=self.device)
+        return out.replace(
+            entry=None,
+            plane=pad_plane(out.plane),
+            rerank=pad_plane(out.rerank),
+            intervals=torch.cat([out.intervals, dead_iv.expand(new_cap - cap, 2)]),
+            nbrs=pad_rows(out.nbrs, new_cap, -1),
+            status=pad_rows(out.status, new_cap, 0),
+            alive=pad_rows(alive, new_cap, False),
+            free=pad_rows(free, new_cap, True),
+        )
 
     def memory_bytes(self) -> dict:
         """Per-component byte counts."""

@@ -18,6 +18,8 @@ version here and the reference agree bitwise on any input.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.kernels import cuda_lib
@@ -133,3 +135,23 @@ def beam_merge_cuda(beam_d, beam_p, cand_d, cand_p):
     cuda_lib.check(err, "beam_merge")
     cuda_lib.launches["beam_merge"] += 1
     return out_d, out_p
+
+
+# -------------------------------------------------------------- cost model
+def merge_comparator_count(ef: int, M: int, *, width: int = 1, fused: bool = True) -> float:
+    """Comparator ops per expansion of the beam-maintenance step.
+
+    Legacy: one bitonic sort of the padded ``ef + M`` concatenation per
+    single-node expansion.  Fused: a sort of ``L = next_pow2(width·M)``
+    candidates plus one partial merge into the ``E = next_pow2(ef)`` beam,
+    amortised over ``width`` expansions."""
+    def bitonic_sort_cost(n: int) -> float:
+        lg = max(int(math.ceil(math.log2(n))), 1)
+        return n / 2 * lg * (lg + 1) / 2
+
+    if not fused:
+        return bitonic_sort_cost(next_pow2(ef + M))
+    E = next_pow2(ef)
+    L = next_pow2(max(width * M, 2))
+    merge = E + (E / 2) * max(int(math.log2(E)), 1)
+    return (bitonic_sort_cost(L) + merge) / width

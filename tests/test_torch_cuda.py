@@ -487,6 +487,74 @@ def test_prune_sweep_main_shape(dev):
                    ops.prune_sweep(*case, backend="torch", **kw))
 
 
+@pytest.mark.parametrize("B,C", [(2048, 132), (256, 256)])
+def test_prune_sweep_update_shapes(dev, B, C):
+    """The update path's sweeps: the new rows' out-edges (C = 132 at the
+    build CLI's defaults) and each repair block (C = P = 256)."""
+    case = prune_case(dev, B, C, 128, seed=C)
+    kw = dict(m_if=32, m_is=32, alpha=1.0, unified=True)
+    assert_bitwise(ops.prune_sweep(*case, backend="cuda", **kw),
+                   ops.prune_sweep(*case, backend="torch", **kw))
+
+
+def test_expand_score_repair_pool_shape(dev):
+    """The repair pool: 256 rows of M + 2M² = 8,256 candidates at M = 64,
+    most of them deduped or dead (-1)."""
+    x, idx, q = expand_case(dev, 200_000, 128, 256, 8256, seed=8)
+    idx = torch.where(torch.rand(idx.shape, device=dev) < 0.7, -1, idx).contiguous()
+    assert_bitwise([ops.expand_score(x, idx, q, backend="cuda")],
+                   [ops.expand_score(x, idx, q, backend="torch")])
+
+
+def update_case(dev, tag="f32"):
+    """A small index on the card, the ids to delete and the rows to insert."""
+    from repro_torch.core import UGConfig, UGIndex
+
+    rng = np.random.default_rng(3)
+    n, d = 2000, 32
+    x = rng.normal(size=(n + 150, d)).astype(np.float32)
+    ints = np.sort(rng.uniform(size=(n + 150, 2)), axis=1).astype(np.float32)
+    cfg = UGConfig(ef_spatial=16, ef_attribute=32, max_edges_if=16, max_edges_is=16,
+                   iterations=2, exact_spatial=True, block=512)
+    idx = UGIndex.build(x[:n], ints[:n], cfg, device=dev)
+    if tag != "f32":
+        idx = idx.with_dtype(tag)
+    dels = rng.choice(n, 200, replace=False).astype(np.int32)
+    return idx, dels, (x[n:], ints[n:])
+
+
+def assert_same_store(a, b):
+    sa, sb = a.store, b.store
+    tensors = lambda s: [s.nbrs, s.status, s.intervals, s.alive, s.free, s.plane.data] + (
+        [] if s.rerank is None else [s.rerank.data])
+    assert_bitwise(tensors(sa), tensors(sb))
+
+
+@pytest.mark.parametrize("tag", ["f32", "int8", "pq"])
+def test_delete_and_insert_cuda_equals_torch(dev, tag):
+    """Delete with repair, then insert (slots reused, then growth), through
+    the kernels and through their plain versions: the same store bits."""
+    idx, dels, (new_x, new_iv) = update_case(dev, tag)
+    out = {}
+    for backend in ("cuda", "torch"):
+        d = idx.delete(dels, backend=backend)
+        i = d.insert(new_x, new_iv, backend=backend, search_backend=backend)
+        g = i.insert(new_x[:100], new_iv[:100], backend=backend, search_backend=backend)
+        out[backend] = (d, i, g)
+    for a, b in zip(out["cuda"], out["torch"]):
+        assert_same_store(a, b)
+    # 150 rows into 200 freed slots, then 100 into the 50 left: 2,050 slots
+    # needed, so the capacity grows to the next power of two
+    assert out["cuda"][1].capacity == idx.capacity and out["cuda"][2].capacity == 4096
+
+
+def test_update_memory_profile_on_the_card(dev):
+    from repro_torch.core import update_memory_profile
+
+    prof = update_memory_profile("cuda")
+    assert not prof["quadratic_cc"] and not prof["gather_bcd"]
+
+
 def scan_case(dev, nq, nx, d, *, seed=0, integer=False, dtype=torch.float32):
     """Queries, corpus and intervals for the two scan kernels.  Integer data
     repeats the first half of the corpus rows (exact ties); every fifth
