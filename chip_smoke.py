@@ -85,7 +85,36 @@ the script exits non-zero without printing a result):
    live rows; tripwires: mean recall@10 ≥ 0.02, no deleted id surfaces,
    capacity unchanged; (c) 1,000 rows inserted into phase 3's index
    re-encoded as int8 + rerank and as pq + rerank: ``cuda`` equals
-   ``torch`` bitwise.
+   ``torch`` bitwise;
+8. serving at full width on phase 3's index (which phase 7's functional
+   updates left as it was): (a) ``ServeEngine.retrieve_mixed`` of phase 3's
+   10,000 mixed queries, padded to the 10,240 bucket, bitwise phase 3's
+   ``search_mixed`` (ids, distances, steps, iterations), the attached
+   store's buffers kept, its launches printed; then, outside every count,
+   the padded and the unpadded batch timed in turns, and the QPS of the
+   same requests as sync batches of 256 and through a
+   runtime whose queue holds them all before its threads start; (b) the
+   threaded ``ServeRuntime`` (micro-batches of up to 256) answering the
+   same 10,000 queries as single-row requests with deadlines from a
+   closed-loop client that keeps 512 requests in flight, a remove of 1,000
+   live ids with repair and an upsert of 1,000 rows of the corpus's
+   mixture submitted halfway: every reply bitwise a direct padded
+   ``search_mixed`` on the snapshot it pinned, no removed document (a
+   removed id still holding its old row; the upsert reuses the freed
+   slots) and no dead slot in a reply after the write, nothing rejected,
+   two writes, every tensor of the pre-write index unchanged; QPS, p50/p99
+   over every reply's latency, the replies answered before the write and
+   each write's seconds from its submission to its future's resolution
+   printed; (c) ``bench_serve``
+   (4,096 requests, micro-batches of 256) and ``bench_updates`` (1 %
+   churn) on phase 3's corpus and index, their rows printed, the consistency
+   rows at 1.000; (d) ``save_index`` → ``restore_index`` of (b)'s mutated
+   index under ``build/`` (removed afterwards): every store tensor bitwise
+   and a search of the 10,000 queries bitwise the live index's, save and
+   restore seconds and bytes and the free disk space printed, and
+   ``AsyncCheckpointer`` writing the same files; (e) the serve path's
+   launches (the runtime's run (b), counted from 0): ``expand_score``,
+   ``beam_merge`` and ``prune_sweep`` each above 0.
 
 The last line is ``{"ok": true, "device": {...}}``.  Nothing here imports
 JAX or the reference package.
@@ -124,6 +153,11 @@ N_CHURN_50K = 5_000            # phase 7(a): 10 % of phase 4's 50,000 rows
 N_CHURN_1M = 10_000            # phase 7(b): 1 % of phase 3's 1M rows
 N_QUANT_INSERT = 1_000         # phase 7(c): rows inserted into the int8 and pq indexes
 UPDATE_KERNELS = ("prune_sweep", "expand_score", "beam_merge")   # phase 7's path
+N_SERVE_WRITE = 1_000          # phase 8(b): ids removed and rows upserted mid-stream
+SERVE_MAX_BATCH = 256          # phase 8(b): the runtime's micro-batch cap
+SERVE_IN_FLIGHT = 512          # phase 8(b): the closed-loop client's requests in flight
+SERVE_BENCH = dict(nreq=4_096, batch=256)                        # phase 8(c)
+SERVE_KERNELS = ("expand_score", "beam_merge", "prune_sweep")    # phase 8's path
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 PEAK_TF32_PER_S = 495e12       # H100 SXM TF32 on the tensor cores, dense
@@ -533,7 +567,7 @@ def phase3_main_path(dev):
          recall_at_10_corpus_queries=recalls_in, iters_corpus_queries=res_in.iters,
          launches=launches)
     return dict(idx=idx, queries=(qv, qi, sems), scored=scored, recalls=recalls,
-                launches=launches, qv_in=qv_in, scored_in=scored_in)
+                launches=launches, qv_in=qv_in, scored_in=scored_in, res=res)
 
 
 def search_checks(idx, queries, dev, what: str) -> None:
@@ -1064,6 +1098,202 @@ def phase7_updates(dev, main, check50, smi) -> dict:
     return launches
 
 
+def store_tensors(store) -> dict:
+    """Every tensor of a store by name, the entry structure's included."""
+    named = dict(plane=store.plane.data, intervals=store.intervals, nbrs=store.nbrs,
+                 status=store.status, alive=store.alive, free=store.free,
+                 scale=store.plane.scale, zero=store.plane.zero,
+                 codebooks=store.plane.codebooks,
+                 rerank=None if store.rerank is None else store.rerank.data)
+    named.update({f"entry_{i}": a for i, a in enumerate(store.entry.arrays())})
+    return {k: v for k, v in named.items() if v is not None}
+
+
+def phase8_serve(dev, main, smi) -> dict:
+    """Serving on phase 3's index; returns the serve path's launches (the
+    runtime's run, (b))."""
+    import collections
+    import filecmp
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch import ckpt
+    from repro_torch.bench import common, tables
+    from repro_torch.ckpt.store import index_tree
+    from repro_torch.core import intervals as iv
+    from repro_torch.kernels import ops
+    from repro_torch.serve import RuntimeConfig, ServeEngine, ServeRuntime
+    from repro_torch.serve.engine import bucket_batch_size
+    from repro_torch.serve.runtime import count_pinned_matches
+
+    idx = main["idx"]
+    qv, qi, sems = main["queries"]
+    nq = qv.shape[0]
+    flags = iv.as_sem_flags(sems, nq, device=dev)
+    ef_k = dict(ef=SEARCH["ef"], k=SEARCH["k"])
+    ops.reset_launches()                                   # (a)'s run
+
+    # (a) the engine: phase 3's batch through retrieve_mixed, padded
+    eng = ServeEngine()
+    eng.attach_index(idx, width=SEARCH["width"])
+    ptrs = [t.data_ptr() for t in (idx.store.plane.data, idx.store.nbrs)]
+    res, retrieve_s = timed(lambda: eng.retrieve_mixed(None, qi, sems, q_v=qv, **ef_k))
+    launches_a = dict(ops.launches)
+    ref = main["res"]
+    check(same_result(res, ref) and res.iters == ref.iters,
+          "8a: retrieve_mixed != phase 3's search_mixed")
+    check(eng.index is idx and [t.data_ptr() for t in (eng.index.store.plane.data,
+                                                       eng.index.store.nbrs)] == ptrs,
+          "8a: attach_index copied the store")
+    # outside every count: what the bucket padding costs (the padded and the
+    # unpadded batch in turns), and where the runtime's time goes: the same requests
+    # as sync batches of the micro-batch size through the engine (the search
+    # alone), and through a runtime whose queue holds them all before its
+    # threads start (no submitter beside the dispatcher)
+    turns = dict(padded=lambda: eng.retrieve_mixed(None, qi, sems, q_v=qv, **ef_k),
+                 unpadded=lambda: idx.search_mixed(qv, qi, sems, **SEARCH))
+    pad_s = {name: [] for name in turns}
+    for name in ("padded", "unpadded", "unpadded", "padded"):
+        pad_s[name].append(timed(turns[name])[1])
+    q_rows, w_rows = qv.cpu().numpy(), qi.cpu().numpy()     # requests arrive on the host
+    mb = SERVE_MAX_BATCH
+    _, batched_s = timed(lambda: [eng.retrieve_mixed(None, qi[s:s + mb], sems[s:s + mb],
+                                                     q_v=qv[s:s + mb], **ef_k)
+                                  for s in range(0, nq, mb)])
+    queued = ServeRuntime(ServeEngine(index=idx), RuntimeConfig(max_batch=mb, max_queue=nq))
+    futs = [queued.submit(q_rows[i], w_rows[i], sems[i], **ef_k) for i in range(nq)]
+    t0 = time.perf_counter()
+    with queued:
+        for f in futs:
+            f.result(timeout=600)
+    prequeued_s = time.perf_counter() - t0
+    emit(phase=8, part="a", card=smi, queries=nq, padded_to=bucket_batch_size(nq),
+         seconds=retrieve_s, qps=nq / retrieve_s, iters=res.iters, launches=launches_a,
+         padding_turns_seconds=pad_s, sync_batches_qps=nq / batched_s, prequeued_runtime_qps=nq / prequeued_s,
+         checks=dict(bitwise_phase3=True, store_by_reference=True))
+
+    # (b) the threaded runtime: single-row requests from a closed-loop
+    # client, a write halfway
+    before = {k: v.clone() for k, v in store_tensors(idx.store).items()}
+    g = torch.Generator(device=dev).manual_seed(80)
+    dels = torch.randperm(idx.n, generator=g, device=dev)[:N_SERVE_WRITE].to(torch.int32)
+    dels_h = dels.cpu().numpy()
+    new_x, new_iv = more_rows(N_MAIN, 0, N_SERVE_WRITE, dev)
+    write_s = {}
+
+    def submit_write(name, submit):
+        """Submit a write; its seconds run from here to its future's resolution."""
+        t_sub = time.perf_counter()
+        fut = submit()
+        fut.add_done_callback(
+            lambda _: write_s.__setitem__(name, time.perf_counter() - t_sub))
+        return fut
+
+    ops.reset_launches()                                   # the serve path's run: (b)
+    t0 = time.perf_counter()
+    with ServeRuntime(eng, RuntimeConfig(max_batch=SERVE_MAX_BATCH)) as rt:
+        futs, writes, window = [], [], collections.deque()
+        for i in range(nq):
+            if i == nq // 2:
+                writes = [submit_write("remove", lambda: rt.submit_remove(dels_h)),
+                          submit_write("upsert", lambda: rt.submit_upsert(new_x, new_iv))]
+            if len(window) == SERVE_IN_FLIGHT:
+                window.popleft().result(timeout=600)
+            futs.append(rt.submit(q_rows[i], w_rows[i], sems[i],
+                                  deadline=rt.clock() + 600.0, **ef_k))
+            window.append(futs[-1])
+        replies = [f.result(timeout=600) for f in futs]
+        written = [w.result(timeout=60) for w in writes]
+        stats = rt.stats()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    lats = np.asarray([r.latency_s for r in replies])
+    p50_ms, p99_ms = 1e3 * np.percentile(lats, [50, 99], method="inverted_cdf")
+    snapshots = len({id(r.index) for r in replies})
+    pinned_ok = count_pinned_matches(replies, qv, qi, flags, **ef_k)
+    pre = [r for r in replies if r.index is idx]
+    mutated = eng.index
+    post_ids = np.concatenate([r.ids for r in replies if r.index is not idx])
+    post_ids = torch.as_tensor(post_ids[post_ids >= 0], device=dev).long()
+    # the upsert takes the slots the remove freed: a removed id may answer
+    # again, holding a new row; a removed document is its id with its old row
+    reused = post_ids[torch.isin(post_ids, dels.long())]
+    removed_surfaced = int((mutated.store.plane.data[reused]
+                            == idx.store.plane.data[reused]).all(dim=1).sum())
+    dead_surfaced = int((~mutated.alive[post_ids]).sum())
+    after = store_tensors(idx.store)
+    unchanged = after.keys() == before.keys() and all(bits_equal(after[k], v)
+                                                      for k, v in before.items())
+    emit(phase=8, part="b", card=smi, requests=nq, max_batch=SERVE_MAX_BATCH,
+         in_flight=SERVE_IN_FLIGHT, qps=nq / wall, wall_seconds=wall, p50_ms=p50_ms,
+         p99_ms=p99_ms, completed=stats["completed"], rejected=stats["rejected"],
+         writes=stats["writes"], written=written, write_seconds=write_s,
+         answered_pre_write=len(pre), snapshots=snapshots, replies_bitwise_pinned=pinned_ok,
+         reused_ids_in_post_write_replies=int(reused.numel()),
+         removed_documents_surfaced=removed_surfaced, dead_slots_surfaced=dead_surfaced,
+         launches=launches, checks=dict(pre_write_index_unchanged=unchanged))
+    check(pinned_ok == nq, f"8b: {nq - pinned_ok} replies differ from their pinned snapshot")
+    check(removed_surfaced == 0 and dead_surfaced == 0,
+          "8b: a removed document or a dead slot surfaced after the write")
+    check(stats["rejected"] == 0 and stats["writes"] == 2 and stats["completed"] == nq
+          and written == [N_SERVE_WRITE] * 2, f"8b: runtime counters off: {stats}, {written}")
+    check(snapshots == 2 and 0 < len(pre) < nq, "8b: the write did not split the stream")
+    check(unchanged, "8b: a write changed a tensor of the pre-write index")
+    del before, after, replies, futs, eng
+
+    # (c) the serve and updates tables on phase 3's corpus and index
+    b = common.Bench(n=idx.capacity, dim=idx.store.dim, nq=nq, device=dev, cfg=idx.config,
+                     corpus=(idx.x, idx.intervals), ug=idx)
+    rows = tables.bench_serve(b, **SERVE_BENCH) + tables.bench_updates(b, churn=0.01)
+    for r in rows:
+        emit(phase=8, part="c", card=smi, row=r["name"], us_per_call=r["us_per_call"],
+             derived=r["derived"], **r["metrics"])
+    cons = {r["name"]: r["metrics"] for r in rows}["serve_consistency"]
+    check(cons["recall_vs_pinned_snapshot"] == 1.0 and cons["recall_async_eq_sync"] == 1.0,
+          f"8c: serve consistency {cons}")
+
+    # (d) checkpoints of (b)'s mutated index
+    root = ROOT / "build" / "ckpt_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    free_before = shutil.disk_usage(ROOT).free
+    try:
+        path, save_s = timed(lambda: ckpt.save_index(root / "sync", 0, mutated))
+        nbytes = sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+        back, restore_s = timed(lambda: ckpt.restore_index(root / "sync", device=dev))
+        stores_equal = same_store(mutated, back)
+        r_live = mutated.search_mixed(qv, qi, sems, **SEARCH)
+        r_back = back.search_mixed(qv, qi, sems, **SEARCH)
+        search_equal = same_result(r_live, r_back) and r_live.iters == r_back.iters
+        saver = ckpt.AsyncCheckpointer(root / "async")
+        arrays, extra = index_tree(mutated)
+        t0 = time.perf_counter()
+        saver.save(0, arrays, extra=extra)
+        saver.wait()
+        async_s = time.perf_counter() - t0
+        files = sorted(f.name for f in (path / "arrays").iterdir())
+        same_files = (files == sorted(f.name for f in (saver.last_path / "arrays").iterdir())
+                      and all(filecmp.cmp(path / "arrays" / f, saver.last_path / "arrays" / f,
+                                          shallow=False) for f in files))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit(phase=8, part="d", card=smi, n_live=mutated.n, capacity=mutated.capacity,
+         free_disk_bytes_before=free_before, bytes=nbytes, files=files, save_seconds=save_s,
+         restore_seconds=restore_s, async_save_seconds=async_s,
+         checks=dict(stores_bitwise=stores_equal, search_bitwise=search_equal,
+                     async_same_files=same_files))
+    check(stores_equal, "8d: the restored store differs from the saved one")
+    check(search_equal, "8d: search on the restored index differs")
+    check(same_files, "8d: AsyncCheckpointer wrote other files than save_index")
+
+    # (e) the serve path ran the kernels
+    for name in SERVE_KERNELS:
+        check(launches.get(name, 0) > 0, f"{name} was not launched on the serve path")
+    emit(phase=8, part="e", launches=launches)
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -1085,6 +1315,7 @@ def main() -> int:
     scan_rows, path_launches["bench"] = phase6_bench(dev, main_path)
     rows.update(scan_rows)
     update_launches = phase7_updates(dev, main_path, check50, smi)
+    serve_launches = phase8_serve(dev, main_path, smi)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -1097,7 +1328,8 @@ def main() -> int:
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             **{k: r[k] for k in EXTRA_KEYS if k in r},
-            **({"launches_updates": update_launches[name]} if name in UPDATE_KERNELS else {})))
+            **({"launches_updates": update_launches[name]} if name in UPDATE_KERNELS else {}),
+            **({"launches_serve": serve_launches[name]} if name in SERVE_KERNELS else {})))
     emit(seconds=time.perf_counter() - t_start, card=smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

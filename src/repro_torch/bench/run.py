@@ -50,6 +50,8 @@ def main(argv=None) -> int:
         ("workloads", lambda: tables.bench_workloads(b)),
         ("indexing", lambda: tables.bench_indexing(b)),
         ("vary_k", lambda: tables.bench_k(b)),
+        ("updates", lambda: tables.bench_updates(b)),
+        ("serve", lambda: tables.bench_serve(b)),
         ("kernels", lambda: tables.bench_kernels(device=dev)),
     ]
     only = args.only.split(",") if args.only else None

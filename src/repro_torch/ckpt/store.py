@@ -1,0 +1,263 @@
+"""Checkpoints: one directory a step, written atomically, old steps pruned.
+
+Layout, byte-compatible with the reference's ``ckpt/store.py`` in both
+directions::
+
+    <dir>/step_000000123/
+        manifest.json     # step, data cursor, time, keys (file, dtype, shape), extra
+        arrays/<key>.npy  # one file a leaf, "/" in the key written as "__"
+
+A step is written into ``.tmp_step_<step>`` and renamed.  Leaves are named
+as ``jax.tree_util`` names them: a dict's entries in sorted key order, by
+key; a list's or tuple's by index; a NamedTuple's by field name; ``None`` is
+an empty subtree.  So a checkpoint of nested numpy arrays or tensors written
+by either package restores in the other.  Leaves are saved as full logical
+arrays; :func:`restore` places them on ``device`` (the reference re-shards
+them onto a mesh; sharding comes with the port's sharded index).
+
+:func:`save_index`/:func:`restore_index` checkpoint a (possibly mutated)
+:class:`~repro_torch.core.index.UGIndex`: the store's arrays under
+``params/``, the build config, plane tag and allocator flags in ``extra``,
+as the reference writes them (``prune_backend`` under the reference's
+name).  :class:`AsyncCheckpointer` copies to the host at once and writes on
+a background thread.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import shutil
+import threading
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.index import (
+    UGIndex, host_arrays, loaded_config, saved_config, store_from_arrays,
+)
+from repro_torch.kernels.util import resolve_device
+
+_SEP = "/"
+
+
+def _is_namedtuple(t) -> bool:
+    return isinstance(t, tuple) and hasattr(t, "_fields")
+
+
+def _children(tree) -> list[tuple[str, Any]] | None:
+    """``(name, child)`` pairs of a container in ``jax.tree_util``'s order,
+    or ``None`` for a leaf."""
+    if isinstance(tree, dict):
+        return [(str(k), tree[k]) for k in sorted(tree)]
+    if _is_namedtuple(tree):
+        return list(zip(tree._fields, tree))
+    if isinstance(tree, (list, tuple)):
+        return [(str(i), c) for i, c in enumerate(tree)]
+    return None
+
+
+def _map(fn, tree, path: str = ""):
+    """``tree`` with every leaf replaced by ``fn(path, leaf)``, the paths
+    ``/``-joined; ``None`` holds no leaf."""
+    if tree is None:
+        return None
+    kids = _children(tree)
+    if kids is None:
+        return fn(path, tree)
+    out = {name: _map(fn, child, f"{path}{_SEP}{name}" if path else name)
+           for name, child in kids}
+    if isinstance(tree, dict):
+        return {k: out[str(k)] for k in tree}
+    vals = [out[name] for name, _ in kids]
+    return type(tree)(*vals) if _is_namedtuple(tree) else type(tree)(vals)
+
+
+def _flatten(tree) -> dict[str, Any]:
+    """Leaves by path, in ``jax.tree_util``'s order."""
+    flat = {}
+    _map(lambda path, leaf: flat.__setitem__(path, leaf), tree)
+    return flat
+
+
+def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def _step_dir(root: pathlib.Path, step: int, tmp: bool = False) -> pathlib.Path:
+    return root / (f".tmp_step_{step:09d}" if tmp else f"step_{step:09d}")
+
+
+def save(
+    ckpt_dir: str | pathlib.Path,
+    step: int,
+    params,
+    opt_state=None,
+    *,
+    data_cursor: int = 0,
+    extra: dict | None = None,
+    keep: int = 3,
+) -> pathlib.Path:
+    """Write one checkpoint; prune old steps beyond ``keep``."""
+    root = pathlib.Path(ckpt_dir)
+    out = _step_dir(root, step)
+    tmp = _step_dir(root, step, tmp=True)
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    (tmp / "arrays").mkdir(parents=True)
+
+    tree = {"params": params}
+    if opt_state is not None:
+        tree["opt"] = opt_state
+    meta = {
+        "step": step,
+        "data_cursor": data_cursor,
+        "time": time.time(),
+        "keys": {},
+        "extra": extra or {},
+    }
+    for key, leaf in _flatten(tree).items():
+        arr = _host(leaf)
+        fname = key.replace(_SEP, "__") + ".npy"
+        np.save(tmp / "arrays" / fname, arr)
+        meta["keys"][key] = {"file": fname, "dtype": str(arr.dtype), "shape": list(arr.shape)}
+    (tmp / "manifest.json").write_text(json.dumps(meta))
+    if out.exists():
+        shutil.rmtree(out)
+    tmp.rename(out)
+
+    steps = sorted(p for p in root.glob("step_*") if p.is_dir())
+    for old in steps[:-keep]:
+        shutil.rmtree(old, ignore_errors=True)
+    return out
+
+
+def latest_step(ckpt_dir: str | pathlib.Path) -> int | None:
+    root = pathlib.Path(ckpt_dir)
+    steps = sorted(p.name for p in root.glob("step_*") if p.is_dir())
+    return int(steps[-1].split("_")[1]) if steps else None
+
+
+def _open(ckpt_dir, step: int | None) -> tuple[pathlib.Path, dict]:
+    root = pathlib.Path(ckpt_dir)
+    if step is None:
+        step = latest_step(root)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {root}")
+    src = _step_dir(root, step)
+    return src, json.loads((src / "manifest.json").read_text())
+
+
+def restore(
+    ckpt_dir: str | pathlib.Path,
+    step: int | None = None,
+    *,
+    params_template=None,
+    opt_template=None,
+    device=None,
+):
+    """Load a checkpoint (the latest step by default).
+
+    The templates give the trees' structure; every leaf comes back as a
+    tensor on ``device`` (``None`` = the card).  Returns
+    ``(params, opt_state, meta)``; a tree without a template is ``None``."""
+    dev = resolve_device(device)
+    src, meta = _open(ckpt_dir, step)
+
+    def rebuild(template, prefix):
+        if template is None:
+            return None
+
+        def leaf(path, _):
+            info = meta["keys"][f"{prefix}{_SEP}{path}" if path else prefix]
+            return torch.as_tensor(np.load(src / "arrays" / info["file"])).to(dev)
+
+        return _map(leaf, template)
+
+    return rebuild(params_template, "params"), rebuild(opt_template, "opt"), meta
+
+
+# ------------------------------------------------------------------ indexes
+def index_tree(index: UGIndex) -> tuple[dict, dict]:
+    """``(arrays, extra)`` that :func:`save_index` checkpoints: the store's
+    host arrays and the reference's ``extra`` record."""
+    st = index.store
+    extra = {
+        "kind": "ug_index",
+        "config": saved_config(index.config),
+        "build_seconds": index.build_seconds,
+        "streaming": st.alive is not None,
+        "dtype": st.plane.tag,
+        "has_rerank": st.rerank is not None,
+    }
+    return host_arrays(st), extra
+
+
+def save_index(ckpt_dir: str | pathlib.Path, step: int, index: UGIndex) -> pathlib.Path:
+    """Checkpoint a (possibly mutated) UGIndex through :func:`save`: the
+    store's arrays become leaves under ``params/``, the build config, plane
+    tag and allocator flags ride in ``extra``.  A mutated index's
+    ``alive``/``free`` are saved, so the restored index resumes inserts and
+    deletes where the saved one stopped; int8 and pq parameters round-trip
+    bit for bit."""
+    arrays, extra = index_tree(index)
+    return save(ckpt_dir, step, arrays, extra=extra)
+
+
+def restore_index(ckpt_dir: str | pathlib.Path, step: int | None = None, *,
+                  device=None) -> UGIndex:
+    """Restore a UGIndex written by :func:`save_index` (either package's)
+    onto ``device`` (``None`` = the card).  The entry structure is rebuilt
+    from the restored intervals over the restored ``alive`` mask, so the
+    restored index searches bit for bit like the saved one."""
+    dev = resolve_device(device)
+    src, meta = _open(ckpt_dir, step)
+    extra = meta["extra"]
+    if extra.get("kind") != "ug_index":
+        raise ValueError(f"checkpoint at {src} is not a ug_index checkpoint")
+    arrays = {key.split(_SEP, 1)[1]: np.load(src / "arrays" / info["file"])
+              for key, info in meta["keys"].items() if key.startswith("params" + _SEP)}
+    store = store_from_arrays(arrays, extra.get("dtype", "f32"), dev)
+    return UGIndex(store, loaded_config(extra["config"]), extra.get("build_seconds", 0.0))
+
+
+class AsyncCheckpointer:
+    """Background-thread checkpointing.
+
+    ``save`` copies the trees to host memory at once and writes the files on
+    a worker thread; ``wait`` joins it, and every ``save`` waits for the
+    previous write first, so at most one write is in flight.  A failed
+    write raises from the next ``wait``."""
+
+    def __init__(self, ckpt_dir: str | pathlib.Path, keep: int = 3):
+        self.ckpt_dir = pathlib.Path(ckpt_dir)
+        self.keep = keep
+        self._thread: threading.Thread | None = None
+        self._error: Exception | None = None
+        self.last_path: pathlib.Path | None = None
+
+    def save(self, step: int, params, opt_state=None, **kw) -> None:
+        self.wait()
+        host_params = _map(lambda _, leaf: _host(leaf), params)
+        host_opt = _map(lambda _, leaf: _host(leaf), opt_state)
+
+        def work():
+            try:
+                self.last_path = save(self.ckpt_dir, step, host_params, host_opt,
+                                      keep=self.keep, **kw)
+            except Exception as e:  # noqa: BLE001  (re-raised by wait())
+                self._error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err

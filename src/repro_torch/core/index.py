@@ -22,6 +22,8 @@ direction, and a saved plane is read back, never encoded again.
 ``meta.json``'s ``prune_backend`` is written under the reference's name for
 the same role (:data:`SAVED_BACKEND`) and read back as the port's
 (:data:`LOADED_BACKEND`), so either package can go on updating the index.
+The index checkpoints of ``ckpt/store.py`` hold the same arrays and config
+(:func:`host_arrays`, :func:`store_from_arrays`, :func:`saved_config`).
 """
 from __future__ import annotations
 
@@ -240,31 +242,10 @@ class UGIndex:
         """Write ``index.npz`` + ``meta.json`` in the reference's format."""
         path = pathlib.Path(path)
         path.mkdir(parents=True, exist_ok=True)
-        st = self.store
-        npy = lambda t: t.detach().cpu().numpy()
-        if st.plane.tag == "bf16":
-            # numpy has no bfloat16: store the codes as a uint16 bit view
-            x_np = npy(st.plane.data.view(torch.int16)).view(np.uint16)
-        else:
-            x_np = npy(st.plane.data)
-        arrays = dict(x=x_np, intervals=npy(st.intervals), nbrs=npy(st.nbrs),
-                      status=npy(st.status))
-        if st.plane.scale is not None:
-            arrays["x_scale"] = npy(st.plane.scale)
-            arrays["x_zero"] = npy(st.plane.zero)
-        if st.plane.codebooks is not None:
-            arrays["x_codebooks"] = npy(st.plane.codebooks)
-        if st.rerank is not None:
-            arrays["rerank"] = npy(st.rerank.data)
-        if st.alive is not None:
-            arrays["alive"] = npy(st.alive)
-            arrays["free"] = (np.zeros(arrays["alive"].shape, bool) if st.free is None
-                              else npy(st.free))
-        np.savez_compressed(path / "index.npz", **arrays)
-        meta = dataclasses.asdict(self.config)
-        meta["prune_backend"] = _rename_backend(SAVED_BACKEND, meta["prune_backend"])
+        np.savez_compressed(path / "index.npz", **host_arrays(self.store))
+        meta = saved_config(self.config)
         meta["build_seconds"] = self.build_seconds
-        meta["dtype"] = st.plane.tag
+        meta["dtype"] = self.store.plane.tag
         (path / "meta.json").write_text(json.dumps(meta, indent=2))
 
     @classmethod
@@ -277,27 +258,74 @@ class UGIndex:
         meta = json.loads((path / "meta.json").read_text())
         build_seconds = meta.pop("build_seconds", 0.0)
         tag = meta.pop("dtype", "f32")
-        meta["prune_backend"] = _rename_backend(LOADED_BACKEND, meta.get("prune_backend"))
-        cfg = UGConfig(**meta)
         with np.load(path / "index.npz") as blob:
             arrays = {k: blob[k] for k in blob.files}
-        on = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(dev)
-        if tag == "bf16":                       # stored as a uint16 bit view (see save)
-            x = on(arrays["x"].view(np.int16)).view(torch.bfloat16)
-        else:
-            x = on(arrays["x"])
-        opt = lambda k: on(arrays[k]) if k in arrays else None
-        plane = VectorPlane(tag, x, opt("x_scale"), opt("x_zero"), opt("x_codebooks"))
-        rerank = VectorPlane("f32", on(arrays["rerank"])) if "rerank" in arrays else None
-        intervals = as_tensor(arrays["intervals"], torch.float32, dev)
-        alive = as_tensor(arrays["alive"], torch.bool, dev) if "alive" in arrays else None
-        free = as_tensor(arrays["free"], torch.bool, dev) if "free" in arrays else None
-        store = IndexStore(plane=plane, rerank=rerank, intervals=intervals,
-                           nbrs=as_tensor(arrays["nbrs"], torch.int32, dev),
-                           status=as_tensor(arrays["status"], torch.uint8, dev),
-                           entry=build_entry_index(intervals, node_mask=alive),
-                           alive=alive, free=free)
-        return cls(store, cfg, build_seconds)
+        return cls(store_from_arrays(arrays, tag, dev), loaded_config(meta), build_seconds)
+
+
+def saved_config(config: UGConfig) -> dict:
+    """The build config as the reference writes it: its fields, with
+    ``prune_backend`` under the reference's name (:data:`SAVED_BACKEND`)."""
+    out = dataclasses.asdict(config)
+    out["prune_backend"] = _rename_backend(SAVED_BACKEND, out["prune_backend"])
+    return out
+
+
+def loaded_config(fields: dict) -> UGConfig:
+    """:func:`saved_config`'s inverse: ``prune_backend`` read back as the
+    port's name (:data:`LOADED_BACKEND`)."""
+    fields = dict(fields)
+    fields["prune_backend"] = _rename_backend(LOADED_BACKEND, fields.get("prune_backend"))
+    return UGConfig(**fields)
+
+
+def host_arrays(store: IndexStore) -> dict[str, np.ndarray]:
+    """The store's arrays as the reference saves them (the npz bridge and the
+    index checkpoints): ``x`` the scan plane in its own dtype (bf16 as a
+    uint16 bit view), ``intervals``, ``nbrs``, ``status``, and where present
+    ``x_scale``/``x_zero``, ``x_codebooks``, ``rerank`` and, on a mutated
+    index, ``alive``/``free``."""
+    npy = lambda t: t.detach().cpu().numpy()
+    if store.plane.tag == "bf16":
+        # numpy has no bfloat16; CPU torch has no uint16 shifts: go through int16
+        x_np = npy(store.plane.data.view(torch.int16)).view(np.uint16)
+    else:
+        x_np = npy(store.plane.data)
+    arrays = dict(x=x_np, intervals=npy(store.intervals), nbrs=npy(store.nbrs),
+                  status=npy(store.status))
+    if store.plane.scale is not None:
+        arrays["x_scale"] = npy(store.plane.scale)
+        arrays["x_zero"] = npy(store.plane.zero)
+    if store.plane.codebooks is not None:
+        arrays["x_codebooks"] = npy(store.plane.codebooks)
+    if store.rerank is not None:
+        arrays["rerank"] = npy(store.rerank.data)
+    if store.alive is not None:
+        arrays["alive"] = npy(store.alive)
+        arrays["free"] = (np.zeros(arrays["alive"].shape, bool) if store.free is None
+                          else npy(store.free))
+    return arrays
+
+
+def store_from_arrays(arrays: dict, tag: str, device) -> IndexStore:
+    """:func:`host_arrays`' inverse on ``device``: the planes as stored, the
+    entry structure rebuilt from the intervals over the live rows."""
+    on = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(device)
+    if tag == "bf16":                       # stored as a uint16 bit view
+        x = on(np.asarray(arrays["x"]).view(np.int16)).view(torch.bfloat16)
+    else:
+        x = on(arrays["x"])
+    opt = lambda k: on(arrays[k]) if k in arrays else None
+    plane = VectorPlane(tag, x, opt("x_scale"), opt("x_zero"), opt("x_codebooks"))
+    rerank = VectorPlane("f32", on(arrays["rerank"])) if "rerank" in arrays else None
+    intervals = as_tensor(arrays["intervals"], torch.float32, device)
+    alive = as_tensor(arrays["alive"], torch.bool, device) if "alive" in arrays else None
+    free = as_tensor(arrays["free"], torch.bool, device) if "free" in arrays else None
+    return IndexStore(plane=plane, rerank=rerank, intervals=intervals,
+                      nbrs=as_tensor(arrays["nbrs"], torch.int32, device),
+                      status=as_tensor(arrays["status"], torch.uint8, device),
+                      entry=build_entry_index(intervals, node_mask=alive),
+                      alive=alive, free=free)
 
 
 def recall(result: SearchResult, truth: SearchResult) -> float:

@@ -737,3 +737,107 @@ def test_cuda_backend_rejects_cpu_tensors():
     idx = torch.zeros((2, 3), dtype=torch.int32)
     with pytest.raises(ValueError):
         ops.expand_score(x, idx, torch.zeros((2, 8)), backend="cuda")
+
+
+# ------------------------------------------------------------------ serving
+@pytest.fixture
+def card_index(dev):
+    """A small UG index built on the card with the kernels."""
+    from repro_torch.core import UGConfig, UGIndex
+
+    rng = np.random.default_rng(21)
+    x = rng.normal(size=(2000, 32)).astype(np.float32)
+    ints = np.sort(rng.uniform(size=(2000, 2)), axis=1).astype(np.float32)
+    cfg = UGConfig(ef_spatial=16, ef_attribute=32, max_edges_if=16, max_edges_is=16,
+                   iterations=2, exact_spatial=True)
+    return UGIndex.build(x, ints, cfg, device=dev)
+
+
+def serve_queries(nq, d=32, seed=22):
+    rng = np.random.default_rng(seed)
+    qv = rng.normal(size=(nq, d)).astype(np.float32)
+    c = rng.uniform(size=(nq, 1)).astype(np.float32)
+    qi = np.concatenate([np.maximum(c - 0.3, 0), np.minimum(c + 0.3, 1)], axis=1)
+    return qv, qi, [1 + i % 2 for i in range(nq)]          # FLAG_IF, FLAG_IS in turn
+
+
+def padded_search(index, qv, qi, flags):
+    from repro_torch.kernels.util import pad_rows
+    from repro_torch.serve.engine import bucket_batch_size, pad_batch
+
+    B = len(flags)
+    Bp = bucket_batch_size(B)
+    dev = index.device
+    q, w = pad_batch(torch.as_tensor(qv, device=dev), torch.as_tensor(qi, device=dev), Bp)
+    f = pad_rows(torch.tensor(flags, dtype=torch.int32, device=dev), Bp, 1)
+    res = index.search_mixed(q, w, f, ef=64, k=10)
+    return res.ids[:B].cpu().numpy(), res.dist[:B].cpu().numpy()
+
+
+def test_threaded_runtime_on_the_card(dev, card_index):
+    """Single-row requests through the threaded runtime with an upsert and a
+    remove mid-stream (in that order, so no freed slot is reused): every
+    reply equals a direct padded search on its pinned snapshot, bitwise; no
+    removed id surfaces after the write; the pre-write index keeps its
+    tensors."""
+    from repro_torch.serve import RuntimeConfig, ServeEngine, ServeRuntime
+
+    eng = ServeEngine()
+    eng.attach_index(card_index)
+    nbrs0 = card_index.store.nbrs.clone()
+    qv, qi, flags = serve_queries(300)
+    dead = np.arange(0, 200, 2, dtype=np.int32)
+    rng = np.random.default_rng(23)
+    new_x = rng.normal(size=(50, 32)).astype(np.float32)
+    new_iv = np.sort(rng.uniform(size=(50, 2)), axis=1).astype(np.float32)
+    with ServeRuntime(eng, RuntimeConfig(max_batch=32)) as rt:
+        futs, writes = [], []
+        for i in range(300):
+            if i == 150:
+                writes += [rt.submit_upsert(new_x, new_iv), rt.submit_remove(dead)]
+            futs.append(rt.submit(qv[i], qi[i], flags[i], deadline=rt.clock() + 120.0))
+        replies = [f.result(timeout=120) for f in futs]
+        stats = rt.stats()
+    assert [w.result(timeout=5) for w in writes] == [50, 100]
+    assert stats["rejected"] == 0 and stats["writes"] == 2
+    groups = {}
+    for i, r in enumerate(replies):
+        groups.setdefault(id(r.index), (r.index, []))[1].append(i)
+    assert len(groups) == 2
+    for index, sel in groups.values():
+        ids, dist = padded_search(index, qv[sel], qi[sel], [flags[i] for i in sel])
+        for j, i in enumerate(sel):
+            assert np.array_equal(replies[i].ids, ids[j])
+            assert np.array_equal(replies[i].dist.view(np.int32), dist[j].view(np.int32))
+    post = [r.ids for r in replies[150:]]
+    assert not np.isin(np.concatenate(post), dead).any()
+    assert torch.equal(card_index.store.nbrs, nbrs0)
+
+
+@pytest.mark.parametrize("B", [1, 13, 300])
+def test_retrieve_mixed_pads_without_changing_answers(dev, card_index, B):
+    from repro_torch.serve import ServeEngine
+
+    eng = ServeEngine(index=card_index)
+    qv, qi, flags = serve_queries(B, seed=24)
+    got = eng.retrieve_mixed(None, qi, flags, q_v=qv)
+    want = card_index.search_mixed(qv, qi, torch.tensor(flags, dtype=torch.int32, device=dev),
+                                   ef=64, k=10)
+    assert_bitwise([got.ids, got.dist, got.steps], [want.ids, want.dist, want.steps])
+    assert got.iters == want.iters
+
+
+def test_checkpoint_round_trip_on_the_card(dev, card_index, tmp_path):
+    from repro_torch import ckpt
+
+    m = card_index.delete(np.arange(0, 100, 3, dtype=np.int32))
+    ckpt.save_index(tmp_path, 0, m)
+    back = ckpt.restore_index(tmp_path, device=dev)
+    assert back.device.type == "cuda"
+    st, sb = m.store, back.store
+    assert_bitwise([st.plane.data, st.intervals, st.nbrs, st.status, st.alive, st.free],
+                   [sb.plane.data, sb.intervals, sb.nbrs, sb.status, sb.alive, sb.free])
+    qv, qi, flags = serve_queries(64, seed=25)
+    f = torch.tensor(flags, dtype=torch.int32, device=dev)
+    a, b = m.search_mixed(qv, qi, f), back.search_mixed(qv, qi, f)
+    assert_bitwise([a.ids, a.dist, a.steps], [b.ids, b.dist, b.steps])
