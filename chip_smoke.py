@@ -115,13 +115,38 @@ the script exits non-zero without printing a result):
    ``AsyncCheckpointer`` writing the same files; (e) the serve path's
    launches (the runtime's run (b), counted from 0): ``expand_score``,
    ``beam_merge`` and ``prune_sweep`` each above 0.
+9. the row-sharded index (``core/sharded.py``) on the card, one process
+   holding ``N_SHARDS`` shards, with a one-process NCCL group so that the
+   NCCL collectives are called (a failure to start NCCL fails the phase):
+   (a) ``build_sharded_store`` of phase 3's corpus with phase 3's
+   ``UGConfig``, its seconds split into the ring bootstrap, the attribute
+   candidates and the refinement, edges, columns, bytes and ``prune_sweep``
+   launches; (b) the mixed sharded search of phase 3's 10,000 queries, QPS
+   beside phase 3's and recall@10 per semantics against phase 3's exact
+   truth (tripwire: mean ≥ 0.02); (c) checks: the sharded answer is bitwise
+   the stable merge of the ``make_shard_probe_fns`` answers; on phase 4's
+   50,000-row corpus (exact-KNN config) the build and search through the
+   kernels equal the plain versions on the card bitwise, f32 and int8 +
+   rerank; the device build's recall per semantics is at least the host
+   build's (``build_sharded_index_host`` + ``shard_index``) minus 0.01; the
+   ring KNN's neighbour sets of sampled rows are ``brute_force_knn``'s (up
+   to ties at the k-th distance within f32 rounding); (d) ``SHARD_PROCS``
+   spawned processes in a gloo group share the card, each holding
+   ``N_SHARDS / SHARD_PROCS`` shards of (c)'s f32 index: their build, ring
+   and search equal (c)'s one-process results bitwise; (e)
+   ``FleetServeMonitor.probe`` over (a)'s probe functions, per-shard seconds
+   and the report's plan; (f) the launches of ``SHARD_KERNELS`` over (a) and
+   (b), each above 0.
 
-The last line is ``{"ok": true, "device": {...}}``.  Nothing here imports
+Before the last lines the script checks that no process it started (the
+compiler, the spawned ranks, multiprocessing's resource tracker) is still
+running.  The last line is ``{"ok": true, "device": {...}}``.  Nothing here imports
 JAX or the reference package.
 """
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -158,6 +183,11 @@ SERVE_MAX_BATCH = 256          # phase 8(b): the runtime's micro-batch cap
 SERVE_IN_FLIGHT = 512          # phase 8(b): the closed-loop client's requests in flight
 SERVE_BENCH = dict(nreq=4_096, batch=256)                        # phase 8(c)
 SERVE_KERNELS = ("expand_score", "beam_merge", "prune_sweep")    # phase 8's path
+N_SHARDS = 4                   # phase 9: shards of the sharded index, all held by one process
+SHARD_KERNELS = ("prune_sweep", "expand_score", "beam_merge")    # phase 9's path
+SHARD_PROCS = 2                # phase 9(d): processes sharing the card, 2 shards each
+SHARD_RING_K = 10              # phase 9(c), (d): neighbours of the ring KNN
+SHARD_RING_SAMPLE = 1_000      # phase 9(c): rows whose ring neighbours are checked
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 PEAK_TF32_PER_S = 495e12       # H100 SXM TF32 on the tensor cores, dense
@@ -208,6 +238,21 @@ def emit(**obj) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def children_left() -> list[str]:
+    """This process's child processes that still exist, as ``"pid command"``."""
+    me = str(os.getpid())
+    left = []
+    for proc in pathlib.Path("/proc").glob("[0-9]*"):
+        try:
+            stat = (proc / "stat").read_text()
+            cmd = (proc / "cmdline").read_bytes().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:     # it ended while we looked
+            continue
+        if stat.rsplit(")", 1)[1].split()[1] == me:     # the field after the state is the parent
+            left.append(f"{proc.name} {cmd.strip()}")
+    return left
 
 
 def bits_equal(a, b) -> bool:
@@ -566,7 +611,7 @@ def phase3_main_path(dev):
          recall_at_10_wider_beams=by_ef,
          recall_at_10_corpus_queries=recalls_in, iters_corpus_queries=res_in.iters,
          launches=launches)
-    return dict(idx=idx, queries=(qv, qi, sems), scored=scored, recalls=recalls,
+    return dict(idx=idx, queries=(qv, qi, sems), scored=scored, recalls=recalls, qps=nq / med,
                 launches=launches, qv_in=qv_in, scored_in=scored_in, res=res)
 
 
@@ -1294,6 +1339,221 @@ def phase8_serve(dev, main, smi) -> dict:
     return launches
 
 
+def phase9_sharded(dev, main, check50, smi) -> dict:
+    """The row-sharded index on the card; returns the sharded path's
+    launches ((a) and (b))."""
+    import dataclasses
+    import datetime
+    import statistics
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import SearchResult, UGConfig
+    from repro_torch.core import intervals as iv
+    from repro_torch.core.candidates import brute_force_knn
+    from repro_torch.core.sharded import (
+        build_sharded_index_host, build_sharded_store, make_ring_knn_fn, make_shard_probe_fns,
+        make_sharded_search_fn, shard_index,
+    )
+    from repro_torch.distributed import ring_all_gather, ring_reduce_scatter
+    from repro_torch.ft import StragglerConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharded import collective_inputs, rank_program, spawn_ranks
+    from repro_torch.serve import FleetServeMonitor
+
+    work = ROOT / "build" / "phase9"
+    work.mkdir(parents=True, exist_ok=True)
+    store_file = work / "nccl_store"
+    store_file.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store_file}", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        check(dist.get_backend() == "nccl", "phase 9: the process group is not NCCL")
+        mesh = make_mesh((N_SHARDS,), ("data",), device=dev)
+        idx = main["idx"]
+        qv, qi, sems = main["queries"]
+        nq = qv.shape[0]
+        flags = iv.as_sem_flags(sems, nq, device=dev)
+        x, ints = idx.x, idx.intervals
+
+        # (a) the sharded build of phase 3's corpus with phase 3's config
+        marks = {}
+
+        def progress(msg):
+            torch.cuda.synchronize()
+            marks[msg.split(":")[0]] = time.perf_counter()
+
+        ops.reset_launches()                                # (a) and (b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sidx = build_sharded_store(mesh, x, ints, idx.config, progress=progress)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        build_launches = dict(ops.launches)
+        st = sidx.store
+        nbytes = st.memory_bytes()["total"] + sidx.global_ids.numel() * 4
+        emit(phase=9, part="a", card=smi, n=idx.n, d=int(x.shape[1]), shards=N_SHARDS,
+             build_seconds=build_s, ring_seconds=marks["ring"] - t0,
+             attribute_seconds=marks["attribute candidates"] - marks["ring"],
+             refine_seconds=marks["refinement"] - marks["attribute candidates"],
+             edges=int((st.nbrs >= 0).sum()), live_cols=int(st.nbrs.shape[1]), bytes=nbytes,
+             prune_sweep_launches=build_launches["prune_sweep"],
+             nccl=dict(backend=dist.get_backend(), world=dist.get_world_size()))
+
+        # (b) the mixed sharded search of phase 3's queries
+        fn = make_sharded_search_fn(mesh, mixed=True, **SEARCH)
+        fn(sidx, qv, qi, flags)                             # warm-up
+        seconds = []
+        for _ in range(TIMED_BATCHES):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ids, dist_ = fn(sidx, qv, qi, flags)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t1)
+        launches = dict(ops.launches)
+        res = SearchResult(ids, dist_, torch.zeros(nq, dtype=torch.int32, device=dev))
+        recalls = recall_per_semantics(res, main["scored"])
+        mean9 = mean(recalls.values())
+        check(mean9 >= 0.02, f"9b: mean recall@10 {mean9} < 0.02 on the sharded index")
+        med = statistics.median(seconds)
+        emit(phase=9, part="b", card=smi, queries=nq, search_seconds=seconds, qps=nq / med,
+             qps_min=nq / max(seconds), qps_max=nq / min(seconds), qps_phase3=main["qps"],
+             recall_at_10=recalls, mean_recall_at_10=mean9, recall_at_10_phase3=main["recalls"],
+             launches=launches)
+
+        # (c) the checks
+        out = {}
+        probe_fns = make_shard_probe_fns(sidx, N_SHARDS, **SEARCH)
+        parts = [p(qv, qi, flags) for p in probe_fns]
+        merged_d, order = torch.sort(torch.cat([p[1] for p in parts], 1), dim=1, stable=True)
+        merged_i = torch.gather(torch.cat([p[0] for p in parts], 1), 1, order[:, :SEARCH["k"]])
+        check(bits_equal(merged_i, ids) and bits_equal(merged_d[:, :SEARCH["k"]], dist_),
+              "9c: the sharded answer != the stable merge of the probes' answers")
+        out["sharded_equals_merged_probes"] = True
+
+        x50, ints50 = check50["idx"].x, check50["idx"].intervals
+        qv50, qi50, sems50 = check50["queries"]
+        sub = slice(0, 1000)
+        q50 = (qv50[sub], qi50[sub], iv.as_sem_flags(sems50[sub], len(sems50[sub]), device=dev))
+        cfg50 = UGConfig(ef_spatial=32, ef_attribute=64, max_edges_if=32, max_edges_is=32,
+                         iterations=3, exact_spatial=True)
+        built, seconds50, launches50 = {}, {}, {}
+        for dtype, rerank in (("f32", False), ("int8", True)):
+            for backend in ("cuda", "torch"):
+                before = dict(ops.launches)
+                s50, seconds50[f"{dtype}_{backend}"] = timed(lambda: build_sharded_store(
+                    mesh, x50, ints50, cfg50, dtype=dtype, rerank=rerank, backend=backend))
+                f50 = make_sharded_search_fn(mesh, mixed=True, backend=backend, plane_tag=dtype,
+                                             has_rerank=rerank, **SEARCH)
+                built[dtype, backend] = (s50, f50(s50, *q50))
+                if backend == "cuda":
+                    launches50[dtype] = {k: v - before[k] for k, v in ops.launches.items()}
+            (a, ra), (b, rb) = built[dtype, "cuda"], built[dtype, "torch"]
+            tensors = lambda s: [s.store.nbrs, s.store.status, s.store.plane.data, s.global_ids]
+            check(all(bits_equal(u, v) for u, v in zip(tensors(a), tensors(b)))
+                  and all(bits_equal(u, v) for u, v in zip(ra, rb)),
+                  f"9c: sharded {dtype} build or search: kernels != plain versions")
+        out["build_and_search_cuda_equals_torch"] = dict(f32=True, int8_rerank=True,
+                                                         seconds=seconds50, launches=launches50)
+
+        dev50 = built["f32", "cuda"][0]
+        host50, host_s = timed(lambda: shard_index(mesh, ("data",), *build_sharded_index_host(
+            x50, ints50, N_SHARDS, cfg50, device=dev)))
+        scored50 = check50["scored"]
+        f50 = make_sharded_search_fn(mesh, mixed=True, **SEARCH)
+        q_all = (qv50, qi50, iv.as_sem_flags(sems50, len(sems50), device=dev))
+        steps0 = torch.zeros(len(sems50), dtype=torch.int32, device=dev)
+        r_dev, r_host = (recall_per_semantics(SearchResult(*f50(sx, *q_all), steps0), scored50)
+                         for sx in (dev50, host50))
+        check(all(r_dev[s] >= r_host[s] - 0.01 for s in r_dev),
+              f"9c: device build recall {r_dev} below the host build's {r_host} - 0.01")
+        out["recall_device_build"], out["recall_host_build"] = r_dev, r_host
+        out["host_build_seconds"] = host_s
+
+        ring_ids, ring_d = make_ring_knn_fn(mesh, k=SHARD_RING_K)(dev50.store.plane.data,
+                                                                  dev50.global_ids)
+        truth = brute_force_knn(x50, SHARD_RING_K)
+        g = torch.Generator(device=dev).manual_seed(90)
+        rows = torch.randperm(ring_ids.shape[0], generator=g, device=dev)[:SHARD_RING_SAMPLE]
+        exact, ties = 0, 0
+        x64 = x50.double()
+        gids_s = dev50.global_ids[rows]
+        ring_s = ring_ids[rows].tolist()
+        truth_s = truth.ids[gids_s.clamp_min(0).long()].tolist()
+        for gid, ring_row, truth_row in zip(gids_s.tolist(), ring_s, truth_s):
+            if gid < 0:
+                continue
+            a, b = set(ring_row), set(truth_row)
+            if a == b:
+                exact += 1
+                continue
+            d64 = ((x64 - x64[gid]) ** 2).sum(1)
+            kth = float(d64[list(b)].max())
+            off = [float(d64[v]) for v in a ^ b]
+            check(all(abs(v - kth) <= 1e-5 * kth for v in off),
+                  f"9c: ring KNN of global row {gid}: {sorted(a)} != {sorted(b)}")
+            ties += 1
+        out["ring_rows_checked"], out["ring_rows_exact"], out["ring_rows_tied"] = (
+            exact + ties, exact, ties)
+        emit(phase=9, part="c", card=smi, n=int(x50.shape[0]), **out)
+
+        # (d) SHARD_PROCS processes share the card in a gloo group
+        inputs = work / "inputs.npz"
+        np.savez(inputs, x=x50.cpu().numpy(), intervals=ints50.cpu().numpy(),
+                 qv=q50[0].cpu().numpy(), qi=q50[1].cpu().numpy(), flags=q50[2].cpu().numpy())
+        ranks = work / "ranks"
+        ranks.mkdir(exist_ok=True)
+        params = dict(device=f"cuda:{torch.cuda.current_device()}", shards=N_SHARDS,
+                      cfg=dataclasses.asdict(cfg50), ring_k=SHARD_RING_K, **SEARCH)
+        gloo_file = work / "gloo_store"
+        gloo_file.unlink(missing_ok=True)
+        _, procs_s = timed(lambda: spawn_ranks(rank_program, SHARD_PROCS,
+                                               (str(inputs), str(ranks), params),
+                                               backend="gloo", init_file=gloo_file,
+                                               timeout=300.0))
+        got = [dict(np.load(ranks / f"rank{r}.npz")) for r in range(SHARD_PROCS)]
+        ids50, dist50 = built["f32", "cuda"][1]
+        blocks, chunks = collective_inputs(mesh, "data")
+        one = dict(nbrs=dev50.store.nbrs, status=dev50.store.status, gids=dev50.global_ids,
+                   ring_ids=ring_ids, ring_dist=ring_d,
+                   all_gather=ring_all_gather(blocks, mesh, "data")[1],
+                   reduce_scatter=ring_reduce_scatter(chunks, mesh, "data"))
+        for key, want in one.items():
+            have = torch.as_tensor(np.concatenate([r[key] for r in got]), device=dev)
+            check(bits_equal(have, want), f"9d: {key} of {SHARD_PROCS} processes != one process's")
+        for r in got:
+            check(bits_equal(torch.as_tensor(r["ids"], device=dev), ids50)
+                  and bits_equal(torch.as_tensor(r["dist"], device=dev), dist50),
+                  f"9d: the search of {SHARD_PROCS} processes != one process's")
+        emit(phase=9, part="d", card=smi, processes=SHARD_PROCS, backend="gloo",
+             device=params["device"], seconds=procs_s,
+             checks=dict(build_bitwise=True, ring_bitwise=True, collectives_bitwise=True,
+                         search_bitwise=True))
+
+        # (e) the fleet monitor over (a)'s probe functions
+        fm = FleetServeMonitor(n_shards=N_SHARDS, n_devices=2 * N_SHARDS)
+        probe_q = (qv[:1000], qi[:1000], flags[:1000])
+        rounds = [fm.probe(probe_fns, *probe_q) for _ in range(StragglerConfig().warmup + 4)]
+        rep = fm.report()
+        emit(phase=9, part="e", card=smi, probe_queries=int(probe_q[0].shape[0]),
+             per_shard_seconds=rounds[-1],
+             stragglers=rep["stragglers"], recommendations=rep["recommendations"],
+             plan=dataclasses.asdict(rep["plan"]),
+             degraded_plan=None if rep["degraded_plan"] is None
+             else dataclasses.asdict(rep["degraded_plan"]))
+    finally:
+        dist.destroy_process_group()
+
+    # (f) the sharded path ran the kernels
+    for name in SHARD_KERNELS:
+        check(launches.get(name, 0) > 0, f"{name} was not launched on the sharded path")
+    emit(phase=9, part="f", card=smi, launches=launches)
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -1316,6 +1576,7 @@ def main() -> int:
     rows.update(scan_rows)
     update_launches = phase7_updates(dev, main_path, check50, smi)
     serve_launches = phase8_serve(dev, main_path, smi)
+    shard_launches = phase9_sharded(dev, main_path, check50, smi)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -1329,8 +1590,11 @@ def main() -> int:
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             **{k: r[k] for k in EXTRA_KEYS if k in r},
             **({"launches_updates": update_launches[name]} if name in UPDATE_KERNELS else {}),
-            **({"launches_serve": serve_launches[name]} if name in SERVE_KERNELS else {})))
-    emit(seconds=time.perf_counter() - t_start, card=smi)
+            **({"launches_serve": serve_launches[name]} if name in SERVE_KERNELS else {}),
+            **({"launches_sharded": shard_launches[name]} if name in SHARD_KERNELS else {})))
+    left = children_left()
+    check(not left, f"processes this run started are still running: {left}")
+    emit(seconds=time.perf_counter() - t_start, card=smi, children_left=len(left))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,8 +29,10 @@ updates mid-stream:
   a write answers against the pre-write snapshot and one admitted after
   against the post-write snapshot, never a torn mix;
 * **fleet health**: :class:`FleetServeMonitor` turns per-shard probe
-  timings into slow-shard advice (:class:`~repro_torch.ft.FleetMonitor`)
-  and a replica plan (:func:`~repro_torch.ft.plan_serve_rescale`).
+  timings (the callables of
+  :func:`repro_torch.core.sharded.make_shard_probe_fns`) into slow-shard
+  advice (:class:`~repro_torch.ft.FleetMonitor`) and a replica plan
+  (:func:`~repro_torch.ft.plan_serve_rescale`).
 
 Every row of a search batch is bitwise independent of the rest of the
 batch, which makes continuous batching *exact*: however the coalescer
@@ -496,8 +498,9 @@ class FleetServeMonitor:
 
     One :class:`~repro_torch.ft.StepTimer` slot a shard.  :meth:`probe`
     times one local search step of each shard (any callables of
-    ``(q_v, q_int, sem_flags)``; the sharded index's own probe functions
-    come with it) and records the fleet; :meth:`report` turns the timings
+    ``(q_v, q_int, sem_flags)``; a sharded index's come from
+    :func:`repro_torch.core.sharded.make_shard_probe_fns`) and records the
+    fleet; :meth:`report` turns the timings
     into straggler ids, per-shard advice and
     :func:`~repro_torch.ft.plan_serve_rescale` replica plans."""
 
