@@ -137,6 +137,25 @@ the script exits non-zero without printing a result):
    ``FleetServeMonitor.probe`` over (a)'s probe functions, per-shard seconds
    and the report's plan; (f) the launches of ``SHARD_KERNELS`` over (a) and
    (b), each above 0.
+10. the legacy A/B backends and the rest of the bench: (a) phase 3's
+   10,000 mixed queries through the one-node-per-step ``legacy`` loop at
+   ef = 64, QPS, iterations and recall@10 per semantics beside phase 3's
+   fused numbers; on 50,000 integer-valued rows (columns spanning
+   [-127, 127], so int8 dequantizes exactly) the legacy search on the card
+   equals the same search of the same index on the CPU bitwise, on the f32
+   plane and on int8 + rerank with 5 % of the rows tombstoned; (b)
+   ``bench_build`` at the reference's sizes (1,000, 2,000 and 4,000 rows,
+   d = 24): the ``legacy``, ``torch`` and ``cuda`` sweeps build graphs with
+   equal checksums, the legacy sweep's profiled peak bytes beside the
+   fused sweeps', and the sharded pq build; (c) ``bench_beam_sweep``,
+   ``bench_mixed_workload`` and ``bench_memory`` on phase 3's index and
+   queries, ``bench_scalability`` at 10,000, 100,000 and phase 3's
+   1,000,000 rows (d = 128), ``bench_sensitivity`` at the reference's 2,000
+   rows, their rows printed, and the launches of (a)'s check, (b) and (c),
+   each kernel of ``LEGACY_BENCH_KERNELS`` above 0; (d) ``python -m
+   repro_torch.bench.run --smoke --check`` against the baseline the CPU
+   wrote, in a subprocess on the card: it must exit 0, and every recall that
+   differs from the CPU's is printed with both values.
 
 Before the last lines the script checks that no process it started (the
 compiler, the spawned ranks, multiprocessing's resource tracker) is still
@@ -188,6 +207,14 @@ SHARD_KERNELS = ("prune_sweep", "expand_score", "beam_merge")    # phase 9's pat
 SHARD_PROCS = 2                # phase 9(d): processes sharing the card, 2 shards each
 SHARD_RING_K = 10              # phase 9(c), (d): neighbours of the ring KNN
 SHARD_RING_SAMPLE = 1_000      # phase 9(c): rows whose ring neighbours are checked
+N_LEGACY_CHECK = 50_000        # phase 10(a): rows of the legacy card == CPU check
+N_LEGACY_CHECK_QUERIES = 1_000
+LEGACY_TIMED = 2               # phase 10(a): timed legacy batches at 1M (after one warm-up)
+SCALE_SIZES = (10_000, 100_000, N_MAIN)                            # phase 10(c)
+# phase 10's paths: (c)'s fused search rows, planes and builds, (a)'s rerank
+LEGACY_BENCH_KERNELS = ("expand_score", "expand_score_bf16", "expand_score_q",
+                        "expand_score_pq", "beam_merge", "prune_sweep")
+SMOKE_GATE_TIMEOUT = 400       # phase 10(d): seconds the bench gate's subprocess may take
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 PEAK_TF32_PER_S = 495e12       # H100 SXM TF32 on the tensor cores, dense
@@ -1554,6 +1581,160 @@ def phase9_sharded(dev, main, check50, smi) -> dict:
     return launches
 
 
+def integer_corpus(n: int, seed: int, dev):
+    """Integer-valued vectors whose columns span exactly [-127, 127] (an int8
+    plane then dequantizes exactly: scale 1, zero 0), every distance exact
+    in f32; the corpus's own intervals and a mixed batch of integer queries."""
+    import torch
+
+    from repro_torch.data import CorpusConfig, make_corpus
+
+    ccfg = CorpusConfig(n=n, dim=128, seed=seed)
+    x, ints = make_corpus(ccfg, device=dev)
+    x = torch.clamp(torch.round(x * 40), -127, 127)
+    x[0], x[1] = -127.0, 127.0
+    qv, qi, sems = mixed_workload(ccfg, N_LEGACY_CHECK_QUERIES, dev)
+    return x, ints, (torch.clamp(torch.round(qv * 40), -127, 127), qi, sems)
+
+
+def on_cpu(index):
+    """The same index on the CPU (the checkpoint arrays, the entry structure
+    rebuilt there)."""
+    from repro_torch.core.index import host_arrays, store_from_arrays
+
+    return index.with_store(store_from_arrays(host_arrays(index.store), index.dtype, "cpu"))
+
+
+def phase10_legacy_bench(dev, main, smi) -> dict:
+    """The legacy A/B backends and the rest of the bench; returns the
+    launches of phase 10's paths ((a)'s check, (b) and (c))."""
+    import statistics
+
+    import torch
+
+    from repro_torch.bench import common, run, tables
+    from repro_torch.core import UGConfig, UGIndex
+    from repro_torch.data import CorpusConfig, make_queries
+    from repro_torch.kernels import ops
+
+    idx = main["idx"]
+    qv, qi, sems = main["queries"]
+    nq = qv.shape[0]
+
+    # (a) the legacy loop on phase 3's index and queries, beside phase 3's
+    idx.search_mixed(qv, qi, sems, backend="legacy", **SEARCH)        # warm-up
+    seconds = []
+    for _ in range(LEGACY_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = idx.search_mixed(qv, qi, sems, backend="legacy", **SEARCH)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    recalls = recall_per_semantics(res, main["scored"])
+    check(mean(recalls.values()) >= 0.02, f"10a: legacy mean recall@10 {recalls} < 0.02")
+    emit(phase=10, part="a", card=smi, n=idx.n, queries=nq, backend="legacy",
+         search_seconds=seconds, qps=nq / statistics.median(seconds), iters=res.iters,
+         mean_steps=float(res.steps.float().mean()), recall_at_10=recalls,
+         fused=dict(qps=main["qps"], iters=main["res"].iters,
+                    mean_steps=float(main["res"].steps.float().mean()),
+                    recall_at_10=main["recalls"]))
+    del res
+
+    # the legacy search on the card is the same search on the CPU, on
+    # integer data, on the f32 plane and on int8 + rerank with tombstones
+    ops.reset_launches()                                   # phase 10's paths
+    x50, ints50, (qv50, qi50, sems50) = integer_corpus(N_LEGACY_CHECK, 5, dev)
+    cfg = UGConfig(ef_spatial=32, ef_attribute=64, max_edges_if=32, max_edges_is=32,
+                   iterations=3)
+    idx50 = UGIndex.build(x50, ints50, cfg, device=dev)
+    dels = torch.randperm(N_LEGACY_CHECK, generator=torch.Generator().manual_seed(9))
+    q50 = idx50.with_dtype("int8").delete(dels[: N_LEGACY_CHECK // 20].to(torch.int32),
+                                           repair=False)
+    check(bool((q50.store.plane.scale == 1).all() and (q50.store.plane.zero == 0).all()),
+          "10a: the integer corpus does not dequantize exactly")
+    cpu_q = (qv50.cpu(), qi50.cpu(), sems50)
+    legacy_check = {}
+    for tag, index in (("f32", idx50), ("int8_rerank_alive", q50)):
+        t0 = time.perf_counter()
+        card = index.search_mixed(qv50, qi50, sems50, backend="legacy", **SEARCH)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host = on_cpu(index).search_mixed(*cpu_q, backend="legacy", **SEARCH)
+        t_cpu = time.perf_counter() - t0
+        check(same_result(result_on_cpu(card), host) and card.iters == host.iters,
+              f"10a: the legacy search on the card != on the CPU ({tag})")
+        legacy_check[tag] = dict(iters=card.iters, seconds_card=t_card, seconds_cpu=t_cpu)
+    emit(phase=10, part="a", card=smi, n=N_LEGACY_CHECK, queries=N_LEGACY_CHECK_QUERIES,
+         card_equals_cpu_bitwise=legacy_check)
+
+    # (b) the build table at the reference's sizes: legacy, torch and cuda
+    # sweeps with equal graph checksums (bench_build raises otherwise), the
+    # sweeps' profiles at the build's block shape; the sharded build at 4,000
+    bench_rows = {}
+
+    def table(part, rows):
+        for r in rows:
+            bench_rows[r["name"]] = r
+            emit(phase=10, part=part, row=r["name"], us_per_call=r["us_per_call"],
+                 derived=r["derived"], **r["metrics"])
+
+    table("b", tables.bench_build(common.BUILD_SIZES, device=dev))
+    sweeps = tables.profile_backends(dev)                  # legacy, torch, cuda
+    emit(phase=10, part="b", card=smi, sweeps=sweeps, sweep_peak_bytes={
+        b: bench_rows[f"build_sweep_profile_{b}"]["metrics"]["peak_bytes"] for b in sweeps})
+
+    # (c) the tables at full width on phase 3's corpus, index and queries
+    ccfg = CorpusConfig(n=idx.n, dim=128, seed=0)
+    batches = {w: make_queries(ccfg, nq, workload=w, device=dev) for w in ("uniform", "point")}
+    b = common.Bench(n=idx.n, dim=128, nq=nq, device=dev, cfg=idx.config,
+                     corpus=(idx.x, idx.intervals), ug=idx, queries=batches)
+    table("c", tables.bench_beam_sweep(b))
+    table("c", tables.bench_mixed_workload(b, require_speedup=2.0))
+    table("c", tables.bench_memory(b, require_reduction=3.0))
+    table("c", tables.bench_scalability(b, sizes=SCALE_SIZES))
+    table("c", tables.bench_sensitivity(common.Bench(n=common.SENSITIVITY_N, device=dev)))
+    launches = dict(ops.launches)
+    for name in LEGACY_BENCH_KERNELS:
+        check(launches.get(name, 0) > 0, f"{name} was not launched on phase 10's paths")
+    emit(phase=10, part="c", card=smi, launches=launches)
+
+    # (d) the bench gate: a smoke run on the card against the baseline the
+    # CPU wrote; a recall that differs from the CPU's (floor + slack) is
+    # printed with both values
+    baseline = ROOT / "src" / "repro_torch" / "bench" / "baseline_smoke.json"
+    out = ROOT / "build" / "phase10_smoke.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.bench.run", "--smoke", "--check", str(baseline),
+         "--json", str(out)], cwd=ROOT, capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), timeout=SMOKE_GATE_TIMEOUT)
+    gate_s = time.perf_counter() - t0
+    floors = json.loads(baseline.read_text())["rows"]
+    differ = {}
+    for r in json.loads(out.read_text())["rows"] if out.exists() else []:
+        got = run.parse_metrics(r["derived"])
+        for key, floor in floors.get(r["name"], {}).get("min", {}).items():
+            cpu = round(floor + run.RECALL_SLACK, 3)
+            if key in got and abs(got[key] - cpu) > 5e-4:
+                differ[f"{r['name']}:{key}"] = dict(card=got[key], cpu=cpu)
+    regressions = [ln for ln in proc.stderr.splitlines() if "REGRESSION" in ln or "FAILED" in ln]
+    emit(phase=10, part="d", card=smi, returncode=proc.returncode, seconds=gate_s,
+         regressions=regressions, recall_differs_from_cpu=differ,
+         gate=[ln for ln in proc.stderr.splitlines() if "perf gate" in ln])
+    check(proc.returncode == 0, f"10d: the bench gate failed on the card: {regressions}\n"
+                                f"{proc.stderr[-4000:]}")
+    return launches
+
+
+def result_on_cpu(res):
+    """A card result's tensors on the CPU."""
+    from repro_torch.core import SearchResult
+
+    return SearchResult(res.ids.cpu(), res.dist.cpu(), res.steps.cpu(), res.iters)
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -1577,6 +1758,7 @@ def main() -> int:
     update_launches = phase7_updates(dev, main_path, check50, smi)
     serve_launches = phase8_serve(dev, main_path, smi)
     shard_launches = phase9_sharded(dev, main_path, check50, smi)
+    legacy_launches = phase10_legacy_bench(dev, main_path, smi)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -1591,7 +1773,9 @@ def main() -> int:
             **{k: r[k] for k in EXTRA_KEYS if k in r},
             **({"launches_updates": update_launches[name]} if name in UPDATE_KERNELS else {}),
             **({"launches_serve": serve_launches[name]} if name in SERVE_KERNELS else {}),
-            **({"launches_sharded": shard_launches[name]} if name in SHARD_KERNELS else {})))
+            **({"launches_sharded": shard_launches[name]} if name in SHARD_KERNELS else {}),
+            **({"launches_legacy_bench": legacy_launches[name]}
+               if name in LEGACY_BENCH_KERNELS else {})))
     left = children_left()
     check(not left, f"processes this run started are still running: {left}")
     emit(seconds=time.perf_counter() - t_start, card=smi, children_left=len(left))

@@ -42,7 +42,7 @@ class UGConfig:
     nnd_iters: int = 6
     exact_spatial: bool = False     # exact KNN candidates (small n oracle)
     block: int = 1024               # nodes pruned per sweep launch
-    prune_backend: str | None = None  # cuda | torch (None = by device)
+    prune_backend: str | None = None  # cuda | torch | legacy (None = by device)
 
 
 def scatter_repairs(w_ids: torch.Tensor, v_ids: torch.Tensor, n: int, width: int) -> torch.Tensor:

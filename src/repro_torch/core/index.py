@@ -48,13 +48,9 @@ from repro_torch.kernels.util import no_tf32, resolve_device
 
 # prune_backend in meta.json: the port's name -> the reference's for the
 # same role (the hand-written kernel, the plain version), and back.
-SAVED_BACKEND = {"cuda": "pallas", "torch": "xla", None: None}
+SAVED_BACKEND = {"cuda": "pallas", "torch": "xla", "legacy": "legacy", None: None}
 LOADED_BACKEND = {
-    "pallas": "cuda", "xla": "torch",
-    # the reference's three sweeps give bit-identical outputs
-    # (src/repro/kernels/prune_sweep.py); the port has no legacy sweep, so
-    # its plain version takes that role
-    "legacy": "torch",
+    "pallas": "cuda", "xla": "torch", "legacy": "legacy",
     "cuda": "cuda", "torch": "torch", None: None,   # as the port wrote them before
 }
 

@@ -4,7 +4,8 @@
 nodes at once.  This module owns the fixed-shape preprocessing (dedup,
 distance sort, vector and interval gathers) and hands the scan itself to
 ``ops.prune_sweep`` (kernels/prune_sweep.py): the CUDA kernel on the card,
-its bitwise plain version on the CPU.  Classical RNG pruning is the same
+its bitwise plain version on the CPU, or (``backend="legacy"``) the
+materialise-then-scan baseline, bitwise too.  Classical RNG pruning is the same
 routine with the semantic witness conditions forced to true
 (``unified=False``).
 """

@@ -18,8 +18,13 @@ batch returns exactly the per-semantics answers.
 A quantized scan plane (bf16, int8, pq) steers the traversal; with an f32
 rerank plane the surviving beam is re-scored exactly before the top-k.  On
 a store with an ``alive`` mask (streaming updates, ``core/updates.py``)
-tombstoned nodes are scored and traversed but never surface.  The
-reference's one-node-per-step ``legacy`` loop is not ported.
+tombstoned nodes are scored and traversed but never surface.
+
+``backend="legacy"`` runs the pre-fusion loop instead, the A/B yardstick
+for what fusion removed: one node expanded per query and step, its ``M``
+neighbours gathered as ``(B, M, d)`` rows, and a full stable argsort of the
+``ef + M`` beam-plus-candidates each step.  It is plain PyTorch on any
+device, bar the rerank's scorer.
 """
 from __future__ import annotations
 
@@ -27,17 +32,15 @@ import dataclasses
 
 import numpy as np
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
 
 from repro_torch.core import intervals as iv
 from repro_torch.core.candidates import merge_topk
-from repro_torch.core.entry import get_entry_batch_flags
+from repro_torch.core.entry import get_entry_batch_flags, get_entry_flags
 from repro_torch.core.store import PQ_K, VectorPlane, default_pq_m
 from repro_torch.kernels import ops
 from repro_torch.kernels.beam_merge import PAD_PAYLOAD, next_pow2
 from repro_torch.kernels.expand_score import dedup_first, dedup_first_quadratic
-from repro_torch.kernels.util import resolve_backend
+from repro_torch.kernels.util import OutputShapes, resolve_backend, resolve_device
 
 # 1 << b as int32 words: bit 31 is negative in two's complement, which is
 # harmless because adding distinct bits to a word equals or-ing them.
@@ -210,6 +213,84 @@ def _beam_search_fused(plane, rerank, intervals, nbrs, status, entry_ids, q_v, q
     return _masked_topk(all_ids, beam_d, ok, steps, it, k)
 
 
+def _beam_search_legacy(plane, rerank, intervals, nbrs, status, start, q_v, q_int, sem_flags,
+                        alive, *, ef: int, k: int, max_steps: int) -> SearchResult:
+    """The pre-fusion Alg. 4 loop, one row per query, advanced together.
+
+    Each step a row expands its best unexpanded beam entry (the first on
+    ties), scores its ``M`` neighbours against the decoded rows, and keeps
+    the ``ef`` best of the beam and the candidates by a stable argsort.  A
+    row steps while it has an unexpanded finite entry and fewer than
+    ``max_steps`` steps; a finished row's state is frozen, as a ``vmap`` of
+    per-query loops leaves it.  ``start`` is one entry id a row (``-1`` =
+    none).  The beam is then re-scored against the rerank plane (on the
+    device's scorer) where there is one, tombstoned entries are masked, and
+    the ``k`` smallest are taken, the lowest slot first on ties.  ``iters``
+    is the slowest row's step count."""
+    n = plane.data.shape[0]
+    M = nbrs.shape[1]
+    B = q_v.shape[0]
+    dev = q_v.device
+    nwords = (n + 31) // 32
+    bits = bit_table(dev)
+    rows = torch.arange(B, device=dev)
+    q32 = q_v.to(torch.float32).contiguous()
+
+    def dist_to(ids):
+        diff = plane.decode_rows(ids.long()).to(torch.float32) - q32[:, None, :]
+        return (diff * diff).sum(-1)
+
+    has_entry = start >= 0
+    start_c = start.clamp(0, n - 1)
+    beam_ids = torch.full((B, ef), -1, dtype=torch.int32, device=dev)
+    beam_d = torch.full((B, ef), torch.inf, dtype=torch.float32, device=dev)
+    beam_ids[:, 0] = torch.where(has_entry, start_c, -1)
+    beam_d[:, 0] = torch.where(has_entry, dist_to(start_c[:, None])[:, 0], torch.inf)
+    expanded = torch.zeros((B, ef), dtype=torch.bool, device=dev)
+    visited = torch.zeros((B, nwords), dtype=torch.int32, device=dev)
+    _bitmap_set(visited, start_c[:, None], has_entry[:, None], bits)
+    steps = torch.zeros((B,), dtype=torch.int32, device=dev)
+    no_cand = torch.zeros((B, M), dtype=torch.bool, device=dev)
+
+    while True:
+        active = (~expanded & torch.isfinite(beam_d)).any(dim=1) & (steps < max_steps)
+        if not bool(active.any()):
+            break
+        j = torch.argmin(torch.where(expanded, torch.inf, beam_d), dim=1)
+        u = beam_ids[rows, j]
+        expanded_new = expanded.clone()
+        expanded_new[rows, j] = True
+        u_c = u.clamp(0, n - 1).long()
+        nb = nbrs[u_c]
+        present = nb >= 0
+        nb_c = nb.clamp(0, n - 1)
+        seen = _bitmap_test(visited, nb_c) | ~present
+        sem_ok = (status[u_c].to(torch.int32) & sem_flags[:, None]) > 0
+        pred_ok = iv.predicate_by_flag(sem_flags[:, None], intervals[nb_c.long()],
+                                       q_int[:, None, :])
+        valid = present & ~seen & sem_ok & pred_ok
+        # mark scored and node-dead neighbours, never edge-masked ones
+        _bitmap_set(visited, nb_c, active[:, None] & present & ~seen & (valid | ~pred_ok), bits)
+        nd = torch.where(valid, dist_to(nb_c), torch.inf)
+        all_ids = torch.cat([beam_ids, torch.where(valid, nb_c, -1)], dim=1)
+        all_d = torch.cat([beam_d, nd], dim=1)
+        all_exp = torch.cat([expanded_new, no_cand], dim=1)
+        order = torch.argsort(all_d, dim=1, stable=True)[:, :ef]
+        keep = active[:, None]
+        beam_ids = torch.where(keep, all_ids.gather(1, order), beam_ids)
+        beam_d = torch.where(keep, all_d.gather(1, order), beam_d)
+        expanded = torch.where(keep, all_exp.gather(1, order), expanded)
+        steps = steps + active.to(torch.int32)
+
+    if rerank is not None:
+        ok = torch.isfinite(beam_d) & (beam_ids >= 0)
+        idx = torch.where(ok, beam_ids, -1).to(torch.int32).contiguous()
+        beam_d = ops.expand_score(rerank.data, idx, q32)
+    ok = torch.ones_like(expanded) if alive is None else \
+        (beam_ids >= 0) & alive[beam_ids.clamp(0, n - 1).long()]
+    return _masked_topk(beam_ids, beam_d, ok, steps, int(steps.max()) if B else 0, k)
+
+
 def _masked_topk(all_ids, beam_d, ok, steps, it, k: int) -> SearchResult:
     """The ``k`` smallest of ``beam_d`` where ``ok``, ids ``-1`` where fewer
     pass: a stable ascending sort and a slice."""
@@ -228,10 +309,17 @@ def beam_search_flags(store, entry_ids, q_v, q_int, sem_flags, *, ef: int, k: in
     ``entry_ids`` is ``(B,)`` or ``(B, We)`` int32 (Alg. 5); ``max_steps=0``
     derives the default cap 8·ef+32 expansions; ``width`` is the frontier
     width W; ``backend`` picks the kernels (``cuda`` | ``torch``, ``None``
-    = by device).  A store's ``alive`` mask keeps tombstoned nodes out of
-    the result."""
-    backend = resolve_backend(backend, store.nbrs)
+    = by device) or the pre-fusion loop (``legacy``, which takes the first
+    entry column and ignores ``width``).  A store's ``alive`` mask keeps
+    tombstoned nodes out of the result."""
     steps_cap = max_steps if max_steps > 0 else 8 * ef + 32
+    if backend == "legacy":
+        start = entry_ids if entry_ids.ndim == 1 else entry_ids[:, 0]
+        return _beam_search_legacy(
+            store.plane, store.rerank, store.intervals, store.nbrs, store.status,
+            start.to(torch.int32), q_v, q_int.to(torch.float32), sem_flags.to(torch.int32),
+            store.alive, ef=ef, k=k, max_steps=steps_cap)
+    backend = resolve_backend(backend, store.nbrs)
     ent = entry_ids[:, None] if entry_ids.ndim == 1 else entry_ids
     return _beam_search_fused(
         store.plane, store.rerank, store.intervals, store.nbrs, store.status,
@@ -253,13 +341,18 @@ def search_mixed(store, q_v, q_int, sem_flags, *, ef: int, k: int, max_steps: in
                  backend: str | None = None, width: int = 4) -> SearchResult:
     """Entry acquisition (Alg. 5) + beam search (Alg. 4) for a batch whose
     queries each carry their own semantics.  ``sem_flags`` takes one
-    :class:`Semantics`, a per-query sequence, or a ``(B,)`` flag tensor."""
+    :class:`Semantics`, a per-query sequence, or a ``(B,)`` flag tensor.
+    The fused backends seed the beam with ``width`` entries a query, the
+    ``legacy`` loop with Alg. 5's single entry."""
     if store.entry is None:
         raise ValueError(
             "store has no entry structure; build one (make_store/"
             "build_entry_index) or pass entry ids to beam_search_flags")
     flags = iv.as_sem_flags(sem_flags, q_v.shape[0], device=q_v.device)
-    entry_ids = get_entry_batch_flags(store.entry, q_int, flags, width=width)
+    if backend == "legacy":
+        entry_ids = get_entry_flags(store.entry, q_int, flags)
+    else:
+        entry_ids = get_entry_batch_flags(store.entry, q_int, flags, width=width)
     return beam_search_flags(store, entry_ids, q_v, q_int, flags, ef=ef, k=k,
                              max_steps=max_steps, backend=backend, width=width)
 
@@ -272,25 +365,11 @@ def search(store, q_v, q_int, *, sem: iv.Semantics, ef: int, k: int, max_steps: 
 
 
 # ------------------------------------------------------------ memory profile
-class _OutputShapes(TorchDispatchMode):
-    """Records ``(shape, dtype, bytes)`` of every tensor an op returns."""
-
-    def __init__(self):
-        super().__init__()
-        self.seen = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
-        for t in tree_flatten(out)[0]:
-            if isinstance(t, torch.Tensor):
-                self.seen.append((tuple(t.shape), t.dtype, t.numel() * t.element_size()))
-        return out
-
-
 def search_step_memory_profile(backend: str = "torch", *, B: int = 8, n: int = 2048,
                                d: int = 24, M: int = 16, width: int = 4, ef: int = 32,
                                dtype: str = "f32", seed: int = 0) -> dict:
-    """Run one fused search step on the CPU and report its intermediates.
+    """Run one fused search step and report its intermediates (on the CPU,
+    or on the card for ``backend="cuda"``).
 
     The step (and its pq tables) runs under a dispatch mode that records the
     shape of every tensor an op returns.  Returns ``{"peak_bytes",
@@ -325,12 +404,19 @@ def search_step_memory_profile(backend: str = "torch", *, B: int = 8, n: int = 2
     beam_p = torch.randint(0, n, (B, E), generator=g, dtype=torch.int32) << 1
     visited = torch.zeros((B, (n + 31) // 32), dtype=torch.int32)
     steps = torch.zeros((B,), dtype=torch.int32)
-    with _OutputShapes() as rec:
+    dev = resolve_device("cuda" if backend == "cuda" else "cpu")
+    plane = dataclasses.replace(plane, **{
+        f: getattr(plane, f).to(dev) for f in ("data", "scale", "zero", "codebooks")
+        if getattr(plane, f) is not None})
+    intervals, nbrs, status, q_v, q_int, flags, beam_d, beam_p, visited, steps = (
+        t.to(dev) for t in (intervals, nbrs, status, q_v, q_int, flags, beam_d, beam_p,
+                            visited, steps))
+    with OutputShapes() as rec:
         step, _, _ = _make_fused_step(plane, intervals, nbrs, status, q_v, q_int, flags,
                                       W=W, backend=backend)
         step(beam_d, beam_p, visited, steps)
     return {
-        "peak_bytes": max(nbytes for _, _, nbytes in rec.seen),
+        "peak_bytes": rec.peak_bytes(),
         "bcd_gather": any(len(s) >= 3 and s[-2:] == (C, d) for s, _, _ in rec.seen),
         "cc_pairwise": any(len(s) >= 2 and s[-2:] == (C, C) for s, _, _ in rec.seen),
         "decoded_nd": dtype in ("int8", "pq") and any(

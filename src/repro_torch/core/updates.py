@@ -47,11 +47,11 @@ from repro_torch.core.build import UGConfig, scatter_repairs
 from repro_torch.core.entry import build_entry_index, get_entry_batch_flags
 from repro_torch.core.index import UGIndex
 from repro_torch.core.prune import unified_prune
-from repro_torch.core.search import _OutputShapes, beam_search_flags
+from repro_torch.core.search import beam_search_flags
 from repro_torch.core.store import IndexStore, VectorPlane, as_tensor
 from repro_torch.kernels import ops
 from repro_torch.kernels.expand_score import dedup_first
-from repro_torch.kernels.util import pad_to, resolve_device
+from repro_torch.kernels.util import OutputShapes, pad_to, resolve_device
 
 # Query window every finite interval satisfies under IF: acquisition searches
 # the IF projection with it, an unconstrained spatial ANN over the live set.
@@ -522,20 +522,17 @@ def update_memory_profile(backend: str, *, b: int = 8, cap: int = 1024, d: int =
     """Run one insert step and one repair sweep at a small size and report
     their intermediates: ``{"peak_bytes", "quadratic_cc", "gather_bcd"}``.
 
-    Every op's output shape is recorded (the dispatch-mode recorder of
-    ``search_step_memory_profile``).  ``quadratic_cc`` says whether a square
-    ``(·, C, C)`` tensor appeared over the insert pool width, the search
-    candidate width ``W·M``, the repair pool ``P`` or the raw bridge width
-    ``M+2M²``; ``gather_bcd`` whether a ``(·, W·M, d)`` search gather or a
-    ``(·, M+2M², d)`` bridge gather did.  The ``(·, P, d)`` and
-    ``(·, C_pool, d)`` gathers that feed the prune sweep are its inputs and
-    allowed.  ``backend="torch"`` runs on the CPU, ``"cuda"`` on the card;
-    both must show neither.  The reference's ``"legacy"`` A/B runs its
-    pre-fusion sweep, which the port does not have yet."""
-    if backend == "legacy":
-        raise NotImplementedError(
-            "update_memory_profile('legacy') needs the legacy prune sweep and search, "
-            "not ported yet (ROADMAP.md queue 1 item 2, the legacy A/B backends)")
+    Every op's output shape is recorded (``kernels/util.py::OutputShapes``).
+    ``quadratic_cc`` says whether a square ``(·, C, C)`` tensor appeared over
+    the insert pool width, the search candidate width ``W·M``, the repair
+    pool ``P`` or the raw bridge width ``M+2M²``; ``gather_bcd`` whether a
+    ``(·, W·M, d)`` search gather or a ``(·, M+2M², d)`` bridge gather did.
+    The ``(·, P, d)`` and ``(·, C_pool, d)`` gathers that feed the prune
+    sweep are its inputs and allowed.  ``backend="torch"`` (and ``"legacy"``)
+    run on the CPU, ``"cuda"`` on the card; the fused two must show neither.
+    ``"legacy"`` runs the pre-fusion baselines (the legacy sweep, the
+    one-node-per-step search, the ``(B, C, d)`` gather scorer) and shows
+    both."""
     dev = resolve_device("cuda" if backend == "cuda" else "cpu")
     g = torch.Generator().manual_seed(seed)
     cfg = UGConfig(ef_spatial=16, ef_attribute=32, max_edges_if=M, max_edges_is=M,
@@ -561,7 +558,7 @@ def update_memory_profile(backend: str, *, b: int = 8, cap: int = 1024, d: int =
     del_mask[torch.randperm(n_live, generator=g)[:b]] = True
     in_sets = torch.randint(0, n_live, (cap, M), generator=g, dtype=torch.int32)
     rows = torch.randperm(n_live, generator=g)[:b].to(torch.int32)
-    with _OutputShapes() as rec:
+    with OutputShapes() as rec:
         _insert_core(store, new_x, new_iv, torch.ones(b, dtype=torch.bool, device=dev),
                      cfg=cfg, backend=backend, search_backend=backend, ef=ef, width=width)
         _repair_core(x.to(dev), ints.to(dev), nbrs.to(dev), status.to(dev), del_mask.to(dev),
@@ -569,7 +566,7 @@ def update_memory_profile(backend: str, *, b: int = 8, cap: int = 1024, d: int =
                      backend=backend, P=P, block=b)
     banned_sq = {c_pool, c_search, c_bridge, P}
     return {
-        "peak_bytes": max(nbytes for _, _, nbytes in rec.seen),
+        "peak_bytes": rec.peak_bytes(),
         "quadratic_cc": any(len(s) >= 2 and s[-1] == s[-2] and s[-1] in banned_sq
                             for s, _, _ in rec.seen),
         "gather_bcd": any(len(s) >= 3 and s[-2:] in ((c_search, d), (c_bridge, d))

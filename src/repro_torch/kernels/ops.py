@@ -5,6 +5,9 @@ launches the hand-written CUDA kernel for CUDA tensors and runs the plain
 PyTorch version for CPU tensors; ``"cuda"`` on CPU tensors raises;
 ``"torch"`` is an explicit request for the plain version on any device.  A
 kernel that fails to build or launch raises: there is no fallback.
+``"legacy"``, where an entry point takes it, runs the pre-fusion baseline in
+plain PyTorch on any device (the A/B yardstick of the memory profiles and
+the bench); it is taken here, before the policy above, which stays strict.
 """
 from __future__ import annotations
 
@@ -42,7 +45,10 @@ def filtered_topk(q, x, obj_int, q_int, *, is_filter: bool, k: int,
 
 def expand_score(x, idx, q, *, backend: str | None = None):
     """Squared L2 between ``q[b]`` and ``x[idx[b, c]]`` (``+inf`` where
-    ``idx < 0``); ``x`` is float32 or bfloat16."""
+    ``idx < 0``); ``x`` is float32 or bfloat16.  ``backend="legacy"`` is the
+    pre-fusion ``(B, C, d)`` gather and matmul identity (allclose only)."""
+    if backend == "legacy":
+        return expand_score_mod.expand_score_legacy(x, idx, q)
     if resolve_backend(backend, x) == "cuda":
         return expand_score_mod.expand_score_cuda(x, idx, q)
     return expand_score_mod.expand_score_torch(x, idx, q)
@@ -101,8 +107,11 @@ def prune_sweep(
     """Unified interval-aware pruning sweep (Alg. 3) over a node block.
 
     Returns ``(status int32, rep_if, rep_is)`` with repair slots local to
-    the candidate axis."""
+    the candidate axis.  ``backend="legacy"`` materialises the ``(B, C, C)``
+    distance and Φ tensors before the scan; all three give the same bits."""
     kw = dict(m_if=m_if, m_is=m_is, alpha=alpha, unified=unified)
+    if backend == "legacy":
+        return prune_sweep_mod.prune_sweep_legacy(i_u, xs, i_c, d_uc, valid, overlap, **kw)
     if resolve_backend(backend, xs) == "cuda":
         return prune_sweep_mod.prune_sweep_cuda(i_u, xs, i_c, d_uc, valid, overlap, **kw)
     return prune_sweep_mod.prune_sweep_torch(i_u, xs, i_c, d_uc, valid, overlap, **kw)

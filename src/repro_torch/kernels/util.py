@@ -3,6 +3,8 @@ device / backend policy every entry point and kernel wrapper follows."""
 from __future__ import annotations
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
 
 BACKENDS = ("cuda", "torch")
 
@@ -83,3 +85,23 @@ def no_tf32() -> None:
     uses a single TF32 product."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+class OutputShapes(TorchDispatchMode):
+    """Records ``(shape, dtype, bytes)`` of every tensor an op returns: the
+    memory profiles' recorder."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_flatten(out)[0]:
+            if isinstance(t, torch.Tensor):
+                self.seen.append((tuple(t.shape), t.dtype, t.numel() * t.element_size()))
+        return out
+
+    def peak_bytes(self) -> int:
+        """The largest tensor recorded."""
+        return max(nbytes for _, _, nbytes in self.seen)

@@ -27,9 +27,10 @@ def main(argv=None) -> int:
     ap.add_argument("--max-edges", type=int, default=32)
     ap.add_argument("--iterations", type=int, default=3)
     ap.add_argument("--interval-mode", default="uniform", choices=["uniform", "point"])
-    ap.add_argument("--prune-backend", default="auto", choices=["auto", "cuda", "torch"],
+    ap.add_argument("--prune-backend", default="auto", choices=["auto", "cuda", "torch", "legacy"],
                     help="pruning-sweep backend (auto = the CUDA kernel on the card, the "
-                         "plain PyTorch version on the CPU); both build bit-identical graphs")
+                         "plain PyTorch version on the CPU; legacy = the materialise-then-"
+                         "scan baseline); all three build bit-identical graphs")
     ap.add_argument("--dtype", default="f32", choices=["f32", "bf16", "int8", "pq"],
                     help="vector scan plane: bf16 halves and int8 quarters the per-vector "
                          "scan bytes; pq keeps one byte per d/m-dim subspace; the graph is "

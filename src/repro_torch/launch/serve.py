@@ -66,9 +66,10 @@ def main(argv=None) -> int:
     ap.add_argument("--queries", type=int, default=64)
     ap.add_argument("--ef", type=int, default=64)
     ap.add_argument("--k", type=int, default=10)
-    ap.add_argument("--backend", default=None, choices=["cuda", "torch"],
+    ap.add_argument("--backend", default=None, choices=["cuda", "torch", "legacy"],
                     help="search kernels (default: the CUDA kernels on the card, the "
-                         "plain PyTorch versions on the CPU)")
+                         "plain PyTorch versions on the CPU; legacy = the one-node-per-"
+                         "step loop)")
     ap.add_argument("--width", type=int, default=4,
                     help="fused multi-expansion frontier width W")
     ap.add_argument("--dtype", default="f32", choices=["f32", "bf16", "int8", "pq"],

@@ -207,7 +207,12 @@ class ServeRuntime:
         a copy back here; keep request rows on the host)."""
         fut: Future = Future()
         now = self.clock()
-        flag = int(iv.as_sem_flags([sem], 1)[0])
+        # plain Python, no tensor op: a torch call would release the
+        # interpreter lock to the dispatcher at every admission
+        flag = sem.flag if isinstance(sem, iv.Semantics) else int(sem)
+        if flag not in (iv.FLAG_IF, iv.FLAG_IS):
+            raise ValueError(f"sem flag must be FLAG_IF ({iv.FLAG_IF}) or FLAG_IS "
+                             f"({iv.FLAG_IS}), got {flag}")
         if deadline is not None and deadline <= now:
             self._reject(fut, DeadlineExceeded(
                 f"deadline {deadline:.3f} already passed at admission ({now:.3f})"))

@@ -23,6 +23,17 @@ from repro_torch.core import entry as port_entry
 from repro_torch.core import intervals as port_iv
 from repro_torch.core import prune as port_prune
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The shapes here are small: torch's intra-op pool only contends with
+    the other test processes and the reference's XLA threads, so this module
+    runs torch on one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 GRID = [0.0, 0.25, 0.5, 0.75, 1.0]
 
 

@@ -555,6 +555,48 @@ def test_update_memory_profile_on_the_card(dev):
     assert not prof["quadratic_cc"] and not prof["gather_bcd"]
 
 
+@pytest.mark.parametrize("B,C,d", [(16, 96, 24), (1024, 96, 24)])
+def test_legacy_sweep_on_the_card_matches_kernel(dev, B, C, d):
+    """The legacy sweep's plain PyTorch on the card (its ``(B, C, C)``
+    tensors materialised) gives the kernel's bits."""
+    case = prune_case(dev, B, C, d, seed=C + d)
+    kw = dict(m_if=8, m_is=8, alpha=1.0, unified=True)
+    assert_bitwise(ops.prune_sweep(*case, backend="legacy", **kw),
+                   ops.prune_sweep(*case, backend="cuda", **kw))
+
+
+def test_sweep_memory_profile_on_the_card(dev):
+    from repro_torch.kernels.prune_sweep import sweep_memory_profile
+
+    assert not sweep_memory_profile("cuda", B=1024, C=96)["quadratic"]
+
+
+@pytest.mark.parametrize("plane", ["f32", "int8"])
+def test_legacy_search_on_the_card_equals_cpu(dev, plane):
+    """The one-node-per-step loop (and, on int8, its rerank through the
+    kernel) on the card equals the same search on the CPU, on integer data
+    that dequantizes exactly."""
+    from repro_torch.core import Semantics, UGConfig, UGIndex
+    from repro_torch.core.index import host_arrays, store_from_arrays
+
+    rng = np.random.default_rng(5)
+    n, d, nq = 2000, 16, 64
+    x = rng.integers(-127, 128, (n, d)).astype(np.float32)
+    x[0], x[1] = -127, 127
+    ints = np.sort(rng.uniform(size=(n, 2)), axis=-1).astype(np.float32)
+    cfg = UGConfig(ef_spatial=16, ef_attribute=32, max_edges_if=16, max_edges_is=16,
+                   iterations=2, exact_spatial=True)
+    idx = UGIndex.build(x, ints, cfg, device=dev, dtype=plane)
+    host = idx.with_store(store_from_arrays(host_arrays(idx.store), idx.dtype, "cpu"))
+    qv = rng.integers(-127, 128, (nq, d)).astype(np.float32)
+    c = rng.uniform(size=(nq, 1))
+    qi = np.concatenate([np.maximum(c - 0.3, 0), np.minimum(c + 0.3, 1)], 1).astype(np.float32)
+    sems = [(Semantics.IF, Semantics.IS, Semantics.RF)[i % 3] for i in range(nq)]
+    got = idx.search_mixed(qv, qi, sems, ef=32, k=10, backend="legacy")
+    want = host.search_mixed(qv, qi, sems, ef=32, k=10, backend="legacy")
+    assert_bitwise([got.ids, got.dist, got.steps], [want.ids, want.dist, want.steps])
+    assert got.iters == want.iters
+
 def scan_case(dev, nq, nx, d, *, seed=0, integer=False, dtype=torch.float32):
     """Queries, corpus and intervals for the two scan kernels.  Integer data
     repeats the first half of the corpus rows (exact ties); every fifth

@@ -8,7 +8,7 @@
   what the port saved.
 * ``meta.json``'s ``prune_backend`` crosses in both directions: a
   port-saved index takes the reference's ``insert``, and the reference's
-  ``pallas``/``xla``/``legacy`` load as the port's ``cuda``/``torch``.
+  ``pallas``/``xla``/``legacy`` load as the port's ``cuda``/``torch``/``legacy``.
 * Builds through NN-descent draw different random numbers in the two
   packages, so on Gaussian data they are held by recall@10 per semantics.
 """
@@ -43,6 +43,17 @@ def mixed_queries(rng, nq, d, *, integer, half_if=0.3, half_is=0.3):
     half = {Semantics.IF: half_if, Semantics.RF: half_if, Semantics.IS: half_is, Semantics.RS: 0.0}
     qi = np.stack([window(half[s])[i] for i, s in enumerate(sems)])
     return qv, qi.astype(np.float32), sems
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The shapes here are small: torch's intra-op pool only contends with
+    the other test processes and the reference's XLA threads, so this
+    module runs torch on one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -196,7 +207,7 @@ def test_port_saved_index_takes_reference_insert(bridge_case, tmp_path, port_nam
 
 
 @pytest.mark.parametrize("ref_name,port_name", [("pallas", "cuda"), ("xla", "torch"),
-                                                ("legacy", "torch"), (None, None)])
+                                                ("legacy", "legacy"), (None, None)])
 def test_reference_saved_backend_loads_in_port(exact_case, tmp_path, ref_name, port_name):
     ref = exact_case[2]
     with_backend(ref, ref_name).save(tmp_path)

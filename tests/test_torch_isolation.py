@@ -1,6 +1,6 @@
 """The port stands alone: no file of ``src/repro_torch/``, nor
-``chip_smoke.py``, imports JAX or the reference package ``repro``.  The
-machine with the card has no JAX."""
+``chip_smoke.py``, imports JAX, the reference package ``repro`` or the
+reference's bench ``benchmarks``.  The machine with the card has no JAX."""
 import ast
 import pathlib
 
@@ -8,7 +8,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def imported_roots(path: pathlib.Path) -> set[str]:

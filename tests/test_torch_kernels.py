@@ -25,6 +25,17 @@ from repro_torch.kernels.beam_merge import PAD_PAYLOAD
 from repro_torch.kernels.expand_score import dedup_first, dedup_first_quadratic
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The shapes here are small: torch's intra-op pool only contends with
+    the other test processes and the reference's XLA threads, so this module
+    runs torch on one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def f32_bits(a) -> np.ndarray:
     a = np.asarray(a)
     return a.view(np.int32) if a.dtype == np.float32 else a

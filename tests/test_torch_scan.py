@@ -29,6 +29,17 @@ from repro_torch.kernels import ref as port_oracles
 from repro_torch.kernels.fused_scan import MAX_K
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The shapes here are small: torch's intra-op pool only contends with
+    the other test processes and the reference's XLA threads, so this module
+    runs torch on one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def f32_bits(a) -> np.ndarray:
     a = np.asarray(a)
     return a.view(np.int32) if a.dtype == np.float32 else a

@@ -509,8 +509,7 @@ def test_stats_wall_clock_inline_mode():
 def test_serve_and_updates_tables_emit_reference_rows(monkeypatch):
     """The ``serve`` and ``updates`` tables on the CPU at a small size carry
     the reference's row names (the profile rows under the port's backend
-    names; the reference's ``legacy`` row waits for the legacy sweep), and
-    the serve table's consistency rows read 1.0."""
+    names), and the serve table's consistency rows read 1.0."""
     from repro_torch.bench import common, tables
 
     monkeypatch.setattr(common, "TIMED_CALLS", (0, 1))   # the rows matter here, not the times
@@ -523,7 +522,9 @@ def test_serve_and_updates_tables_emit_reference_rows(monkeypatch):
     assert serve[1]["metrics"]["writes"] == 2 and serve[1]["metrics"]["rejected"] == 0
     updates = tables.bench_updates(b, require_recall_gap=1.0)
     assert [r["name"] for r in updates] == [
-        "updates_profile_torch", "updates_delete_batch", "updates_insert_batch",
-        "updates_churn_if", "updates_churn_is", "updates_churn_rs", "updates_churn_rf"]
-    assert updates[0]["metrics"]["quadratic_cc"] is False
-    assert updates[2]["metrics"]["batch"] == 30 and updates[1]["metrics"]["live"] == 300
+        "updates_profile_legacy", "updates_profile_torch", "updates_delete_batch",
+        "updates_insert_batch", "updates_churn_if", "updates_churn_is", "updates_churn_rs",
+        "updates_churn_rf"]
+    assert updates[0]["metrics"]["quadratic_cc"] is True
+    assert updates[1]["metrics"]["quadratic_cc"] is False
+    assert updates[3]["metrics"]["batch"] == 30 and updates[2]["metrics"]["live"] == 300
