@@ -156,6 +156,34 @@ the script exits non-zero without printing a result):
    repro_torch.bench.run --smoke --check`` against the baseline the CPU
    wrote, in a subprocess on the card: it must exit 0, and every recall that
    differs from the CPU's is printed with both values.
+11. the LM towers (``models/``, ``configs/``, ``ServeEngine.embed``/
+   ``generate``, the serve CLI): (a) the five dense archs' reduced towers
+   (float32) on the card and on the CPU with the same weights, hidden
+   states, embeddings and 12 decode steps' logits within atol = rtol =
+   1e-4, the largest errors printed; (b) qwen1.5-4b at full width (40
+   layers, d = 2560, vocab 151,936, bf16) from a seeded generator, its
+   parameter count 3,950,369,280, ``embed`` of 50,000 documents of 32
+   random tokens in batches of 256: seconds, tokens/s and TFLOP/s (2 × the
+   parameters outside ``embed``/``unembed`` × tokens over the seconds)
+   beside the bf16 peak, every embedding finite and of unit norm within
+   1e-5; (c) ``UGIndex.build`` of the 50,000 × 2560 embeddings with the
+   serve CLI's ``UGConfig`` (NN-descent) and uniform intervals, the mixed
+   search of 10,000 embedded queries cycling IF/IS/RS/RF at ef 64, k 10,
+   W 4: QPS (median of 3, with min and max), iterations, recall@10 per
+   semantics against ``brute_force``
+   (tripwire: mean ≥ 0.02), and on the first 5,000 documents the build
+   and the search with ``cuda`` equal to ``torch`` bitwise; (d) 4 prompts
+   × 16 tokens through ``decode_step`` against ``prefill`` + ``unembed``:
+   the first position's logits within 2⁻⁵ relative RMS, the second's
+   within 0.15 and the decode cache's layer 0 within 2⁻⁶ of the
+   prefill's, every position's error
+   printed (the reasons stand in the code); (e) greedy ``generate`` of 16
+   tokens for 8 prompts of 16, seconds and tokens/s; (f) ``python -m
+   repro_torch.launch.serve --arch qwen1.5-4b --no-reduced --docs 2000
+   --queries 64 --mixed`` in a subprocess on the card: exit 0, its lines
+   printed; (g) the launches of ``expand_score``, ``beam_merge`` and
+   ``prune_sweep`` over (c)'s build and timed searches (before its checks),
+   each above 0.
 
 Before the last lines the script checks that no process it started (the
 compiler, the spawned ranks, multiprocessing's resource tracker) is still
@@ -215,6 +243,17 @@ SCALE_SIZES = (10_000, 100_000, N_MAIN)                            # phase 10(c)
 LEGACY_BENCH_KERNELS = ("expand_score", "expand_score_bf16", "expand_score_q",
                         "expand_score_pq", "beam_merge", "prune_sweep")
 SMOKE_GATE_TIMEOUT = 400       # phase 10(d): seconds the bench gate's subprocess may take
+# phase 11: the LM towers embed the served corpus
+TOWER_ARCH = "qwen1.5-4b"      # (b)-(f): the serve CLI's default arch at full width
+TOWER_PARAMS = 3_950_369_280   # its parameter count
+DENSE_ARCHS = ("chameleon-34b", "minicpm3-4b", "qwen1.5-4b", "qwen3-32b", "starcoder2-15b")
+N_DOCS = 50_000                # (b), (c): documents embedded and indexed
+DOC_LEN = 32                   # tokens a document or query (the serve CLI's --doc-len)
+N_TOWER_CHECK = 5_000          # (c): documents of the cuda == torch build and search check
+DECODE_CHECK = (4, 16)         # (d): prompts x tokens of decode against forward
+GENERATE = dict(prompts=8, prompt_len=16, max_new=16)            # (e)
+TOWER_KERNELS = ("expand_score", "beam_merge", "prune_sweep")    # (c)'s path
+TOWER_CLI_TIMEOUT = 600        # (f): seconds the serve CLI's subprocess may take
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 PEAK_TF32_PER_S = 495e12       # H100 SXM TF32 on the tensor cores, dense
@@ -1728,6 +1767,216 @@ def phase10_legacy_bench(dev, main, smi) -> dict:
     return launches
 
 
+def rel_rms(a, b) -> float:
+    """``‖a − b‖ / ‖b‖`` in float64."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def phase11_towers(dev, smi) -> dict:
+    """The LM towers on the card: reduced towers against the CPU, qwen1.5-4b
+    at full width embedding the corpus the index is built over, decode,
+    generate and the serve CLI; returns the launches of (c)."""
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import Semantics, UGConfig, UGIndex
+    from repro_torch.core import intervals as iv
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import EMBED_BATCH, embed_batches
+    from repro_torch.models import get_model
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.serve import ServeEngine
+
+    # (a) the five dense archs' reduced towers (float32, TF32 off) on the card
+    # and on the CPU with the same weights.  Tolerance atol = rtol = 1e-4:
+    # the card's BLAS sums float32 products in another order than the CPU's
+    # (TF32 off), over two layers of values of order 1-4 -- the tolerance
+    # the CPU tests hold the port to the reference with.
+    reduced = {}
+    for arch in DENSE_ARCHS:
+        cfg = get_arch(arch).reduced
+        model = get_model(cfg)
+        host = model.init(torch.Generator().manual_seed(21))
+        card = tree_map(lambda a: a.to(dev), host)
+        toks = torch.randint(0, cfg.vocab, (2, 12), generator=torch.Generator().manual_seed(22))
+        errs = {}
+        h_cpu = model.forward(host, toks)[0]
+        h_card = model.forward(card, toks.to(dev))[0].cpu()
+        e_cpu = ServeEngine(model, host).embed(toks)
+        e_card = ServeEngine(model, card).embed(toks.to(dev)).cpu()
+        close = [torch.allclose(h_card, h_cpu, atol=1e-4, rtol=1e-4),
+                 torch.allclose(e_card, e_cpu, atol=1e-4, rtol=1e-4)]
+        errs["hidden"], errs["embed"] = max_abs_err(h_card, h_cpu), max_abs_err(e_card, e_cpu)
+        s_cpu = model.init_decode_state(host, 2, 12)
+        s_card = model.init_decode_state(card, 2, 12)
+        errs["decode_logits"] = 0.0
+        for i in range(12):
+            s_cpu, l_cpu = model.decode_step(host, s_cpu, toks[:, i:i + 1])
+            s_card, l_card = model.decode_step(card, s_card, toks[:, i:i + 1].to(dev))
+            close.append(torch.allclose(l_card.cpu(), l_cpu, atol=1e-4, rtol=1e-4))
+            errs["decode_logits"] = max(errs["decode_logits"], max_abs_err(l_card.cpu(), l_cpu))
+        reduced[arch] = dict(max_abs_err=errs, within_tolerance=all(close))
+        check(all(close), f"11a: {arch}'s reduced tower on the card != on the CPU: {errs}")
+    emit(phase=11, part="a", card=smi, tolerance="atol = rtol = 1e-4", reduced_towers=reduced)
+
+    # (b) qwen1.5-4b at full width in bf16 from a seeded generator, embedding
+    # N_DOCS documents of DOC_LEN random tokens in batches of EMBED_BATCH
+    cfg = get_arch(TOWER_ARCH).config
+    model = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(a.numel() for _, a in tree_leaves(params))
+    check(n_params == cfg.param_count() == TOWER_PARAMS,
+          f"11b: {TOWER_ARCH} has {n_params} parameters, not {TOWER_PARAMS}")
+    n_body = n_params - params["embed"].numel() - params["unembed"].numel()
+    engine = ServeEngine(model, params)
+    g = torch.Generator(device=dev).manual_seed(1)
+    docs = torch.randint(0, cfg.vocab, (N_DOCS, DOC_LEN), generator=g, device=dev)
+    engine.embed(docs[:EMBED_BATCH])                       # warm-up
+    x, embed_s = timed(lambda: embed_batches(engine, docs))
+    tokens = N_DOCS * DOC_LEN
+    norms = x.norm(dim=-1)
+    unit = bool(torch.isfinite(x).all()) and float((norms - 1).abs().max()) <= 1e-5
+    emit(phase=11, part="b", card=smi, arch=TOWER_ARCH, dtype=str(cfg.dtype),
+         param_count=n_params, params_outside_embed_unembed=n_body, init_seconds=init_s,
+         docs=N_DOCS, doc_len=DOC_LEN, batch=EMBED_BATCH, d=x.shape[1], embed_seconds=embed_s,
+         tokens_per_s=tokens / embed_s, tflops=2 * n_body * tokens / embed_s / 1e12,
+         peak_bf16_tflops=PEAK_BF16_PER_S / 1e12,
+         bound_seconds=2 * n_body * tokens / PEAK_BF16_PER_S,
+         max_norm_err=float((norms - 1).abs().max()),
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         checks=dict(unit_norm=unit))
+    check(unit, "11b: an embedding is not finite or not of unit norm within 1e-5")
+
+    # (c) the index over the embeddings: the serve CLI's UGConfig (NN-descent
+    # above 4,096 documents), a mixed search of embedded queries, recall
+    # against brute_force; cuda == torch bitwise on the first N_TOWER_CHECK
+    ops.reset_launches()                                   # (c)'s path
+    ints = iv.sample_uniform_intervals(g, N_DOCS)
+    ucfg = UGConfig(ef_spatial=32, ef_attribute=64, max_edges_if=32, max_edges_is=32,
+                    iterations=3, repair_width=16, exact_spatial=N_DOCS <= 4096)
+    idx = UGIndex.build(x, ints, ucfg, device=dev)
+    qv = embed_batches(engine, torch.randint(0, cfg.vocab, (N_QUERIES, DOC_LEN), generator=g,
+                                             device=dev))
+    c = torch.rand((N_QUERIES, 1), generator=g, device=dev)
+    wide = torch.cat([(c - 0.3).clamp_min(0.0), (c + 0.3).clamp_max(1.0)], dim=1)
+    sems = [[Semantics.IF, Semantics.IS, Semantics.RS, Semantics.RF][i % 4]
+            for i in range(N_QUERIES)]
+    is_rs = torch.tensor([s is Semantics.RS for s in sems], device=dev)
+    qi = torch.where(is_rs[:, None], torch.cat([c, c], dim=1), wide)
+    idx.search_mixed(qv, qi, sems, **SEARCH)                # warm-up
+    seconds = []
+    for _ in range(3):
+        res, s = timed(lambda: idx.search_mixed(qv, qi, sems, **SEARCH))
+        seconds.append(s)
+    launches = dict(ops.launches)                           # (c)'s path ends here
+    med = statistics.median(seconds)
+    scored = scored_queries(idx, qv, qi, sems)
+    recalls = recall_per_semantics(res, scored)
+    check_builds = {b: UGIndex.build(x[:N_TOWER_CHECK], ints[:N_TOWER_CHECK],
+                                     dataclasses.replace(ucfg, prune_backend=b), device=dev)
+                    for b in ("cuda", "torch")}
+    check(bits_equal(check_builds["cuda"].graph.nbrs, check_builds["torch"].graph.nbrs)
+          and bits_equal(check_builds["cuda"].graph.status, check_builds["torch"].graph.status),
+          f"11c: the d = {x.shape[1]} build: prune_backend='cuda' != 'torch'")
+    search_checks(check_builds["cuda"], (qv, qi, sems), dev, "11c")
+    emit(phase=11, part="c", card=smi, n=N_DOCS, d=x.shape[1], queries=N_QUERIES,
+         build_seconds=idx.build_seconds, degree_stats=idx.degree_stats(),
+         search_seconds=seconds, qps=N_QUERIES / med,
+         qps_min=N_QUERIES / max(seconds), qps_max=N_QUERIES / min(seconds), iters=res.iters,
+         mean_steps=float(res.steps.float().mean()), recall_at_10=recalls,
+         mean_recall_at_10=mean(recalls.values()), launches=launches,
+         check_builds_seconds={b: i.build_seconds for b, i in check_builds.items()},
+         checks=dict(build_bitwise=True, search_bitwise=True, mixed_equals_per_semantics=True))
+    check(mean(recalls.values()) >= 0.02,
+          f"11c: mean recall@10 {recalls} < 0.02 over the embedded corpus")
+    del idx, check_builds, res, qv, qi, x
+
+    # (d) decode against forward at full width.  Held: the first position's
+    # logits (one key: no attention choice, the paths differ by bf16
+    # rounding of products over other row counts, unit roundoff 2^-8, over
+    # 40 layers) within 2^-5 relative RMS; the second position's within
+    # 0.15, where every layer's attention reads two cached keys, so a cache
+    # written or read at the wrong slot or layer shows (the H100 read 0.055
+    # here; the cache deliberately broken gave 0.33-1.35 on the CPU); and
+    # the decode cache's layer 0 (every position's k and v, written step by
+    # step) within 2^-6 of the prefill's.  Printed: every position's error,
+    # held only below sqrt(2) (logits uncorrelated with the forward's): the
+    # rounding drift grows with the position: the reference's init draws
+    # wq/wk at 1/sqrt(n_heads) (its fan-in is shape[-2]), so attention is
+    # near one-hot and a rounding difference can flip the key a head reads;
+    # the flips compound over 40 layers (on the CPU at d = 256-512, 40
+    # layers: relative RMS 0.28-0.34 in bf16, and 0.047 in the reference's
+    # own float32).
+    B, S = DECODE_CHECK
+    prompts = torch.randint(0, cfg.vocab, (B, S), generator=g, device=dev)
+    with torch.no_grad():
+        hidden, caches = model.prefill(params, {"tokens": prompts})
+        full = tr.unembed(cfg, params, hidden).float()
+        state = model.init_decode_state(params, B, S)
+        steps = []
+        for i in range(S):
+            state, logits = model.decode_step(params, state, prompts[:, i:i + 1])
+            steps.append(logits.float())
+    inc = torch.stack(steps, dim=1)
+    per_pos = [rel_rms(inc[:, i], full[:, i]) for i in range(S)]
+    cache0 = {name: rel_rms(state.cache[j][0].float(), caches[j][0].float())
+              for j, name in enumerate(("k", "v"))}
+    overall = rel_rms(inc, full)
+    agree = float((inc.argmax(-1) == full.argmax(-1)).float().mean())
+    emit(phase=11, part="d", card=smi, prompts=B, tokens=S, max_abs_err=max_abs_err(inc, full),
+         rel_rms=overall, rel_rms_by_position=per_pos, argmax_agreement=agree,
+         cache_layer0_rel_rms=cache0,
+         cache_last_layer_rel_rms={name: rel_rms(state.cache[j][-1].float(),
+                                                 caches[j][-1].float())
+                                   for j, name in enumerate(("k", "v"))},
+         tolerance=dict(first_position=2 ** -5, second_position=0.15, cache_layer0=2 ** -6,
+                        all_positions=2 ** 0.5))
+    check(bool(torch.isfinite(inc).all()), "11d: decode logits not finite")
+    check(per_pos[0] <= 2 ** -5, f"11d: first position's decode != forward: {per_pos[0]}")
+    check(per_pos[1] <= 0.15, f"11d: second position's decode != forward: {per_pos[1]}")
+    check(max(cache0.values()) <= 2 ** -6, f"11d: decode cache's layer 0 != prefill's: {cache0}")
+    check(overall < 2 ** 0.5, f"11d: decode logits uncorrelated with forward's: {overall}")
+    del hidden, caches, full, state, inc, steps
+
+    # (e) greedy generation
+    gp = torch.randint(0, cfg.vocab, (GENERATE["prompts"], GENERATE["prompt_len"]), generator=g,
+                       device=dev)
+    out, gen_s = timed(lambda: engine.generate(gp, GENERATE["max_new"]))
+    check(tuple(out.shape) == (GENERATE["prompts"], GENERATE["max_new"])
+          and bool(((out >= 0) & (out < cfg.vocab)).all()), "11e: generate's tokens off")
+    emit(phase=11, part="e", card=smi, **GENERATE, seconds=gen_s,
+         new_tokens_per_s=out.numel() / gen_s,
+         decode_steps_per_s=(GENERATE["prompt_len"] + GENERATE["max_new"]) / gen_s)
+    del engine, params, docs, out
+    torch.cuda.empty_cache()
+
+    # (f) the serve CLI at full width in a subprocess on the card
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", TOWER_ARCH,
+           "--no-reduced", "--docs", "2000", "--queries", "64", "--mixed"]
+    proc, cli_s = timed(lambda: subprocess.run(
+        cmd, cwd=ROOT, capture_output=True, text=True, timeout=TOWER_CLI_TIMEOUT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"))))
+    emit(phase=11, part="f", card=smi, command=" ".join(cmd[1:]), returncode=proc.returncode,
+         seconds=cli_s, lines=proc.stdout.splitlines())
+    check(proc.returncode == 0, f"11f: the serve CLI failed:\n{proc.stderr[-4000:]}")
+
+    # (g) (c)'s path ran the kernels
+    for name in TOWER_KERNELS:
+        check(launches.get(name, 0) > 0, f"{name} was not launched on phase 11's path")
+    emit(phase=11, part="g", launches=launches)
+    return launches
+
+
 def result_on_cpu(res):
     """A card result's tensors on the CPU."""
     from repro_torch.core import SearchResult
@@ -1759,6 +2008,7 @@ def main() -> int:
     serve_launches = phase8_serve(dev, main_path, smi)
     shard_launches = phase9_sharded(dev, main_path, check50, smi)
     legacy_launches = phase10_legacy_bench(dev, main_path, smi)
+    tower_launches = phase11_towers(dev, smi)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -1775,7 +2025,8 @@ def main() -> int:
             **({"launches_serve": serve_launches[name]} if name in SERVE_KERNELS else {}),
             **({"launches_sharded": shard_launches[name]} if name in SHARD_KERNELS else {}),
             **({"launches_legacy_bench": legacy_launches[name]}
-               if name in LEGACY_BENCH_KERNELS else {})))
+               if name in LEGACY_BENCH_KERNELS else {}),
+            **({"launches_towers": tower_launches[name]} if name in TOWER_KERNELS else {})))
     left = children_left()
     check(not left, f"processes this run started are still running: {left}")
     emit(seconds=time.perf_counter() - t_start, card=smi, children_left=len(left))

@@ -81,10 +81,41 @@ def _flatten(tree) -> dict[str, Any]:
     return flat
 
 
-def _host(leaf) -> np.ndarray:
+def _host(leaf):
+    """A leaf on the host: a numpy array, or a CPU tensor for bfloat16,
+    which numpy has no type for."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        return leaf if leaf.dtype == torch.bfloat16 else leaf.numpy()
     return np.asarray(leaf)
+
+
+def _save_leaf(path: pathlib.Path, leaf) -> tuple[str, list[int]]:
+    """Write one leaf as ``.npy``; returns its manifest dtype and shape.
+
+    A bfloat16 leaf is written as the reference writes one (numpy saves
+    ``ml_dtypes.bfloat16`` as 2-byte words under the descr ``<V2``), with
+    the dtype ``"bfloat16"`` in the manifest: the same bytes."""
+    arr = _host(leaf)
+    if isinstance(arr, torch.Tensor):                  # bfloat16
+        words = arr.contiguous().view(torch.int16).numpy()
+        with open(path, "wb") as f:
+            np.lib.format.write_array_header_1_0(
+                f, {"descr": "<V2", "fortran_order": False, "shape": words.shape})
+            f.write(words.tobytes())
+        return "bfloat16", list(words.shape)
+    np.save(path, arr)
+    return str(arr.dtype), list(arr.shape)
+
+
+def _load_leaf(path: pathlib.Path, dtype: str) -> torch.Tensor:
+    """One leaf as a CPU tensor, read by its manifest dtype: a bfloat16
+    leaf's 2-byte words (``np.load`` gives them as void ``|V2``) become a
+    ``torch.bfloat16`` tensor."""
+    arr = np.load(path)
+    if dtype == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.as_tensor(arr)
 
 
 def _step_dir(root: pathlib.Path, step: int, tmp: bool = False) -> pathlib.Path:
@@ -120,10 +151,9 @@ def save(
         "extra": extra or {},
     }
     for key, leaf in _flatten(tree).items():
-        arr = _host(leaf)
         fname = key.replace(_SEP, "__") + ".npy"
-        np.save(tmp / "arrays" / fname, arr)
-        meta["keys"][key] = {"file": fname, "dtype": str(arr.dtype), "shape": list(arr.shape)}
+        dtype, shape = _save_leaf(tmp / "arrays" / fname, leaf)
+        meta["keys"][key] = {"file": fname, "dtype": dtype, "shape": shape}
     (tmp / "manifest.json").write_text(json.dumps(meta))
     if out.exists():
         shutil.rmtree(out)
@@ -162,7 +192,8 @@ def restore(
     """Load a checkpoint (the latest step by default).
 
     The templates give the trees' structure; every leaf comes back as a
-    tensor on ``device`` (``None`` = the card).  Returns
+    tensor on ``device`` (``None`` = the card), a bfloat16 leaf (either
+    package's) as a ``torch.bfloat16`` tensor.  Returns
     ``(params, opt_state, meta)``; a tree without a template is ``None``."""
     dev = resolve_device(device)
     src, meta = _open(ckpt_dir, step)
@@ -173,7 +204,7 @@ def restore(
 
         def leaf(path, _):
             info = meta["keys"][f"{prefix}{_SEP}{path}" if path else prefix]
-            return torch.as_tensor(np.load(src / "arrays" / info["file"])).to(dev)
+            return _load_leaf(src / "arrays" / info["file"], info["dtype"]).to(dev)
 
         return _map(leaf, template)
 

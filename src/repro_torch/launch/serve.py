@@ -1,21 +1,21 @@
 """Interval-aware retrieval serving (the paper's deployment), on the card.
 
-Pipeline: a synthetic document corpus → the UG unified index over
-(vector, validity-interval) pairs → batched queries under all four
-semantics (IF / IS / RS / RF) against brute-force truth; then, on request,
-one interleaved mixed stream (``--mixed``), a 10 % churn through the
-streaming updates (``--dynamic``) and the continuous-batching runtime with
-per-request deadlines and a write mid-stream (``--async``).
-
-The reference embeds its documents and queries with an LM tower.  The
-port's towers are not written yet (ROADMAP queue 1 item 9), so the vectors
-come from ``data/synthetic.py`` (``make_corpus``/``make_queries``, sized by
-``--docs`` and ``--dim``), and ``--arch``/``--reduced`` wait for the towers.
+Pipeline: an LM tower (``--arch``, reduced unless ``--no-reduced``) embeds
+a corpus of random-token documents → the UG unified index over (embedding,
+validity-interval) pairs → batched queries, embedded by the same tower,
+under all four semantics (IF / IS / RS / RF) against brute-force truth;
+then, on request, one interleaved mixed stream (``--mixed``), a 10 % churn
+through the streaming updates (``--dynamic``) and the continuous-batching
+runtime with per-request deadlines and a write mid-stream (``--async``).
+Tokens, intervals and windows come from seeded ``torch.Generator``s, the
+tower's weights from the port's own seeded init.
 
 Example::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --docs 300 \\
         --queries 16 --mixed --dynamic --async
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b --no-reduced \\
+        --docs 2000 --queries 64 --mixed          # on the card
 """
 from __future__ import annotations
 
@@ -26,11 +26,15 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.configs.registry import get_arch
 from repro_torch.core import Semantics, UGConfig, UGIndex, recall
-from repro_torch.data import CorpusConfig, make_corpus, make_queries
+from repro_torch.core import intervals as iv
+from repro_torch.kernels.util import no_tf32, resolve_device
+from repro_torch.models import get_model
 from repro_torch.serve import RuntimeConfig, ServeEngine, ServeRuntime
 
 CYCLE = [Semantics.IF, Semantics.IS, Semantics.RS, Semantics.RF]
+EMBED_BATCH = 256              # documents a tower call embeds
 
 
 def _sync(dev: torch.device) -> None:
@@ -50,20 +54,22 @@ def _timed(fn, dev, *, warm: bool = False):
     return out, time.perf_counter() - t0
 
 
-def _more_rows(ccfg: CorpusConfig, extra: int, dev):
-    """``extra`` new rows from the corpus's own mixture: a longer draw with
-    the same seed (the cluster centres come first in its stream)."""
-    x, ints = make_corpus(CorpusConfig(n=ccfg.n + extra, dim=ccfg.dim, seed=ccfg.seed),
-                          device=dev)
-    return x[ccfg.n:], ints[ccfg.n:]
+def embed_batches(engine: ServeEngine, tokens: torch.Tensor) -> torch.Tensor:
+    """``engine.embed`` over ``tokens`` in batches of :data:`EMBED_BATCH` rows."""
+    return torch.cat([engine.embed(tokens[s:s + EMBED_BATCH])
+                      for s in range(0, tokens.shape[0], EMBED_BATCH)])
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", default="qwen1.5-4b")
+    ap.add_argument("--reduced", action=argparse.BooleanOptionalAction, default=True,
+                    help="use the reduced config (--no-reduced serves the full-size "
+                         "architecture)")
     ap.add_argument("--docs", type=int, default=2000)
-    ap.add_argument("--dim", type=int, default=64)
     ap.add_argument("--queries", type=int, default=64)
+    ap.add_argument("--doc-len", type=int, default=32)
     ap.add_argument("--ef", type=int, default=64)
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--backend", default=None, choices=["cuda", "torch", "legacy"],
@@ -81,34 +87,50 @@ def main(argv=None) -> int:
                     help="also serve one interleaved IF/IS/RS/RF stream and compare it "
                          "with four per-semantics batches")
     ap.add_argument("--dynamic", action="store_true",
-                    help="churn: delete 10%% of the corpus and upsert as many rows "
-                         "through the streaming updates, then re-evaluate recall")
+                    help="churn: delete 10%% of the corpus and upsert as many new "
+                         "documents through the streaming updates, then re-evaluate recall")
     ap.add_argument("--async", dest="async_serve", action="store_true",
                     help="stream the mixed workload through ServeRuntime with "
                          "per-request deadlines and a write mid-stream")
     args = ap.parse_args(argv)
 
-    engine = ServeEngine()
+    dev = resolve_device(args.device)
+    no_tf32()
+    spec = get_arch(args.arch)
+    cfg = spec.reduced if args.reduced else spec.config
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    engine = ServeEngine(model, params)
+    g = torch.Generator(device=dev).manual_seed(1)
 
-    # 1) corpus and unified index
-    ccfg = CorpusConfig(n=args.docs, dim=args.dim, seed=0)
-    x, intervals = make_corpus(ccfg, device=args.device)
-    dev = x.device
+    def tokens(n: int) -> torch.Tensor:
+        return torch.randint(0, cfg.vocab, (n, args.doc_len), generator=g, device=dev)
+
+    # 1) embed the corpus with the LM tower
+    doc_tokens = tokens(args.docs)
+    x, dt = _timed(lambda: embed_batches(engine, doc_tokens), dev)
+    print(f"[serve] {cfg.name}: embedded {args.docs} docs (d={x.shape[1]}) in {dt:.1f}s "
+          f"on {dev}")
+
+    # 2) validity intervals (the uniform interval model, §3.2) + unified index
+    intervals = iv.sample_uniform_intervals(g, args.docs)
     ucfg = UGConfig(ef_spatial=32, ef_attribute=64, max_edges_if=32, max_edges_is=32,
                     iterations=3, repair_width=16, exact_spatial=args.docs <= 4096)
     idx = UGIndex.build(x, intervals, ucfg, dtype=args.dtype, device=dev)
     engine.attach_index(idx, backend=args.backend, width=args.width)
     vm = idx.vector_memory_bytes()
-    print(f"[serve] UG built over {args.docs} docs (d={args.dim}) in "
-          f"{idx.build_seconds:.1f}s ({args.dtype} plane, "
-          f"{vm['plane_bytes_per_vector']:.1f} B/vec) on {dev}; "
-          f"degree stats {idx.degree_stats()}")
+    print(f"[serve] UG built in {idx.build_seconds:.1f}s ({args.dtype} plane, "
+          f"{vm['plane_bytes_per_vector']:.1f} B/vec); degree stats {idx.degree_stats()}")
 
-    # 2) queries under all four semantics (one index)
-    qv, wide = make_queries(ccfg, args.queries, device=dev)
-    _, point = make_queries(ccfg, args.queries, workload="point", device=dev)
+    # 3) queries under all four semantics (one index); wide windows c ± 0.3,
+    #    point windows for RS
+    qv = embed_batches(engine, tokens(args.queries))
+    c = torch.rand((args.queries, 1), generator=g, device=dev)
+    wide = torch.cat([(c - 0.3).clamp_min(0.0), (c + 0.3).clamp_max(1.0)], dim=1)
+    point = torch.cat([c, c], dim=1)
     for sem in CYCLE:
         qint = point if sem is Semantics.RS else wide
+        # qv was embedded once above: the timing is the search alone
         res, dt = _timed(lambda: engine.retrieve(None, qint, sem=sem, ef=args.ef, k=args.k,
                                                  q_v=qv), dev)
         r = recall(res, idx.ground_truth(qv, qint, sem=sem, k=args.k))
@@ -150,8 +172,8 @@ def main(argv=None) -> int:
         n_churn = max(args.docs // 10, 1)
         dead = np.random.default_rng(5).choice(args.docs, size=n_churn, replace=False)
         _, dt_del = _timed(lambda: engine.remove(dead.astype(np.int32)), dev)
-        new_x, new_iv = _more_rows(ccfg, n_churn, dev)
-        _, dt_ins = _timed(lambda: engine.upsert(None, new_iv, x=new_x), dev)
+        new_tokens, new_iv = tokens(n_churn), iv.sample_uniform_intervals(g, n_churn)
+        _, dt_ins = _timed(lambda: engine.upsert(new_tokens, new_iv), dev)
         idx2 = engine.index
         print(f"[serve] dynamic churn: {n_churn} deletes in {dt_del:.2f}s "
               f"({n_churn / dt_del:,.0f}/s), {n_churn} upserts in {dt_ins:.2f}s "
@@ -166,7 +188,8 @@ def main(argv=None) -> int:
     #    the coalescer packs them into bucket-sized micro-batches
     if args.async_serve:
         n_churn = max(args.docs // 20, 1)
-        new_x, new_iv = _more_rows(ccfg, n_churn, dev)
+        new_x = embed_batches(engine, tokens(n_churn))
+        new_iv = iv.sample_uniform_intervals(g, n_churn)
         q_rows, w_rows = qv.cpu().numpy(), qmix.cpu().numpy()   # requests arrive on the host
         before = engine.index
         engine.retrieve_mixed(None, qmix[:1], sems[:1], ef=args.ef, k=args.k, q_v=qv[:1])

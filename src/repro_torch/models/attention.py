@@ -1,0 +1,291 @@
+"""Attention variants: GQA (+bias/qk-norm), MLA, flash-chunked softmax.
+
+``flash_attention`` is the full-sequence path: the FlashAttention online
+softmax over (q chunk × kv chunk) tiles in plain PyTorch, with the
+reference's tile order and guards, so the (S × S) logits never
+materialise.  ``decode_attention`` scores one query step against a KV
+cache.  MLA follows DeepSeek-V2/MiniCPM3: queries, keys and values are
+low-rank projections of cached latents; the decode path uses the absorbed
+form (W_uk folded into the query), so a token's cache is
+``kv_lora + rope_dim`` wide.
+
+The reference pins some tensors' sharding (``shard_ctx.constrain``); on one
+card that is the identity, and the port has no such calls.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import ModelConfig, rms_norm, rope
+
+
+def _inv_sqrt(n: int) -> float:
+    """``1 / sqrt(n)`` rounded as the reference rounds it, in float32."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(n)))
+
+
+# ---------------------------------------------------------------------------
+# Flash-style chunked attention (no S×S materialisation)
+# ---------------------------------------------------------------------------
+def expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """GQA: (B, S, KV, hd) -> (B, S, H, hd); query head h reads kv head
+    ``h // (H / KV)`` (a gather, as ``repeat_interleave`` orders heads)."""
+    g = n_heads // k.shape[2]
+    idx = torch.arange(n_heads, device=k.device) // g
+    return k.index_select(2, idx)
+
+
+def flash_attention(
+    q: torch.Tensor,          # (B, Sq, H, hd)
+    k: torch.Tensor,          # (B, Sk, KV, hd)
+    v: torch.Tensor,          # (B, Sk, KV, dv)
+    *,
+    causal: bool = True,
+    q_offset: int = 0,        # absolute position of q[0] (prefill continuation)
+    q_chunk: int = 512,
+    kv_chunk: int = 1024,
+) -> torch.Tensor:
+    """Online-softmax attention, chunked on both axes: the largest logits
+    tensor is (B, H, q_chunk, kv_chunk).
+
+    Aligned causal attention (``q_offset == 0``, ``Sq == Sk``) with more
+    than one q chunk visits only the lower-triangle (q tile, kv tile) pairs,
+    in the reference's order (q tile by q tile, kv tiles ascending); any
+    other input takes the q × kv double loop.  Computed in float32, cast
+    back to ``q``'s dtype.
+    """
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    dv = v.shape[-1]                 # may differ from hd (MLA rope-extended k)
+    dev = q.device
+
+    kh = expand_kv(k, H).float()
+    vh = expand_kv(v, H).float()
+
+    aligned = causal and q_offset == 0 and Sq == Sk
+    q_chunk = min(q_chunk, Sq)
+    if aligned:
+        kv_chunk = q_chunk          # square tiles -> clean triangle skipping
+    kv_chunk = min(kv_chunk, Sk)
+    nq = (Sq + q_chunk - 1) // q_chunk
+    nk = (Sk + kv_chunk - 1) // kv_chunk
+    qf = F.pad(q.float() * _inv_sqrt(hd), (0, 0, 0, 0, 0, nq * q_chunk - Sq))
+    kf = F.pad(kh, (0, 0, 0, 0, 0, nk * kv_chunk - Sk))
+    vf = F.pad(vh, (0, 0, 0, 0, 0, nk * kv_chunk - Sk))
+    qf = qf.reshape(B, nq, q_chunk, H, hd)
+    kf = kf.reshape(B, nk, kv_chunk, H, hd)
+    vf = vf.reshape(B, nk, kv_chunk, H, dv)
+    q_ar = torch.arange(q_chunk, device=dev)
+    kv_ar = torch.arange(kv_chunk, device=dev)
+
+    def tile(i, j, m, l, acc):
+        """One (q_chunk × kv_chunk) online-softmax update of q tile i by kv tile j."""
+        q_pos = q_offset + i * q_chunk + q_ar
+        kv_pos = j * kv_chunk + kv_ar
+        s = torch.einsum("bqhd,bshd->bhqs", qf[:, i], kf[:, j])     # (B,H,qc,kc)
+        mask = (kv_pos[None, :] <= q_pos[:, None]) if causal else (kv_pos[None, :] >= 0)
+        mask = mask & (kv_pos[None, :] < Sk)
+        s = torch.where(mask, s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        l_new = l * corr + p.sum(dim=-1)
+        acc_new = acc * corr[..., None] + torch.einsum("bhqs,bshd->bhqd", p, vf[:, j])
+        return m_new, l_new, acc_new
+
+    def start():
+        return (torch.full((B, H, q_chunk), -torch.inf, device=dev),
+                torch.zeros((B, H, q_chunk), device=dev),
+                torch.zeros((B, H, q_chunk, dv), device=dev))
+
+    if aligned and nq > 1:
+        pairs = [(i, j) for i in range(nq) for j in range(nk)
+                 if j * kv_chunk <= i * q_chunk + q_chunk - 1]
+    else:
+        pairs = [(i, j) for i in range(nq) for j in range(nk)]
+    state = [start() for _ in range(nq)]
+    for i, j in pairs:
+        state[i] = tile(i, j, *state[i])
+    out = torch.stack([acc / l.clamp_min(1e-30)[..., None] for _, l, acc in state], dim=1)
+    out = out.permute(0, 1, 3, 2, 4).reshape(B, nq * q_chunk, H, dv)[:, :Sq]  # (B,Sq,H,dv)
+    return out.to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,          # (B, 1, H, hd)
+    k_cache: torch.Tensor,    # (B, S, KV, hd)
+    v_cache: torch.Tensor,
+    cache_len: torch.Tensor,  # (B,) valid prefix length
+) -> torch.Tensor:
+    B, _, H, hd = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    qf = (q.float() * _inv_sqrt(hd)).reshape(B, KV, H // KV, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qf, k_cache.float())
+    mask = torch.arange(S, device=q.device)[None, :] < cache_len[:, None]     # (B, S)
+    s = torch.where(mask[:, None, None, :], s, -torch.inf)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA block (covers dense archs; bias and qk-norm options)
+# ---------------------------------------------------------------------------
+def build_gqa_params(cfg: ModelConfig, b, prefix_layers: bool = True):
+    L = (cfg.n_layers,) if prefix_layers else ()
+    lax_ = ("layers",) if prefix_layers else ()
+    hd = cfg.hd
+    p = {
+        "wq": b(L + (cfg.d_model, cfg.n_heads, hd), lax_ + ("embed", "heads", "hd")),
+        "wk": b(L + (cfg.d_model, cfg.n_kv_heads, hd), lax_ + ("embed", "kv_heads", "hd")),
+        "wv": b(L + (cfg.d_model, cfg.n_kv_heads, hd), lax_ + ("embed", "kv_heads", "hd")),
+        "wo": b(L + (cfg.n_heads, hd, cfg.d_model), lax_ + ("heads", "hd", "embed")),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = b(L + (cfg.n_heads, hd), lax_ + ("heads", "hd"), init="zeros")
+        p["bk"] = b(L + (cfg.n_kv_heads, hd), lax_ + ("kv_heads", "hd"), init="zeros")
+        p["bv"] = b(L + (cfg.n_kv_heads, hd), lax_ + ("kv_heads", "hd"), init="zeros")
+    if cfg.qk_norm:
+        p["q_norm"] = b(L + (hd,), lax_ + ("hd",), init="ones")
+        p["k_norm"] = b(L + (hd,), lax_ + ("hd",), init="ones")
+    return p
+
+
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B, S, d) @ (d, H, k) -> (B, S, H, k)."""
+    return (x @ w.reshape(w.shape[0], -1)).reshape(x.shape[:-1] + w.shape[1:])
+
+
+def _merge_heads(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, k) @ (H, k, d) -> (B, S, d)."""
+    return o.reshape(o.shape[:-2] + (-1,)) @ wo.reshape(-1, wo.shape[-1])
+
+
+def _queries(cfg: ModelConfig, p, x, positions):
+    q = _heads(x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    return rope(q, positions, cfg.rope_theta)
+
+
+def gqa_qkv(cfg: ModelConfig, p, x, positions):
+    """Project to rotary q/k and v. x (B, S, d) -> q (B,S,H,hd), k/v (B,S,KV,hd)."""
+    k = _heads(x, p["wk"])
+    v = _heads(x, p["wv"])
+    if cfg.qkv_bias:
+        k = k + p["bk"]
+        v = v + p["bv"]
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return _queries(cfg, p, x, positions), rope(k, positions, cfg.rope_theta), v
+
+
+def gqa_attend(cfg: ModelConfig, p, x, positions, *, causal=True, kv=None,
+               cache=None, cache_len=None):
+    """Full GQA block: returns (out, new_kv_for_cache).
+
+    ``kv``: externally supplied (k, v) for cross-attention.
+    ``cache``/``cache_len``: decode path — append one step, score vs cache.
+    """
+    if kv is None:
+        q, k, v = gqa_qkv(cfg, p, x, positions)
+    else:
+        q = _queries(cfg, p, x, positions)
+        k, v = kv
+
+    if cache is not None:
+        k_cache, v_cache = cache
+        k_cache = _scatter_step(k_cache, k, cache_len)
+        v_cache = _scatter_step(v_cache, v, cache_len)
+        out = decode_attention(q, k_cache, v_cache, cache_len + 1)
+        return _merge_heads(out, p["wo"]), (k_cache, v_cache)
+
+    out = flash_attention(q, k, v, causal=causal)
+    return _merge_heads(out, p["wo"]), (k, v)
+
+
+def _scatter_step(cache: torch.Tensor, step: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """``cache`` (B, S, ...) with one new step (B, 1, ...) written at per-row
+    position ``lens``; a row whose ``lens`` is past the end is unchanged, as
+    under the reference's one-hot blend."""
+    hit = torch.arange(cache.shape[1], device=cache.device)[None, :] == lens[:, None]
+    hit = hit.reshape(hit.shape + (1,) * (cache.ndim - 2))
+    return torch.where(hit, step.to(cache.dtype), cache)
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention) — MiniCPM3 / DeepSeek-V2 style
+# ---------------------------------------------------------------------------
+def build_mla_params(cfg: ModelConfig, b):
+    L = (cfg.n_layers,)
+    lax_ = ("layers",)
+    hd = cfg.hd                      # nope head dim (== v head dim)
+    rd = cfg.rope_head_dim
+    return {
+        "w_dq": b(L + (cfg.d_model, cfg.q_lora_rank), lax_ + ("embed", "rank")),
+        "q_norm": b(L + (cfg.q_lora_rank,), lax_ + ("rank",), init="ones"),
+        "w_uq": b(L + (cfg.q_lora_rank, cfg.n_heads, hd + rd), lax_ + ("rank", "heads", "hd")),
+        "w_dkv": b(L + (cfg.d_model, cfg.kv_lora_rank + rd), lax_ + ("embed", "rank")),
+        "kv_norm": b(L + (cfg.kv_lora_rank,), lax_ + ("rank",), init="ones"),
+        "w_uk": b(L + (cfg.kv_lora_rank, cfg.n_heads, hd), lax_ + ("rank", "heads", "hd")),
+        "w_uv": b(L + (cfg.kv_lora_rank, cfg.n_heads, hd), lax_ + ("rank", "heads", "hd")),
+        "wo": b(L + (cfg.n_heads, hd, cfg.d_model), lax_ + ("heads", "hd", "embed")),
+    }
+
+
+def mla_latents(cfg: ModelConfig, p, x, positions):
+    """The cached latent: c_kv (B,S,r) and rotary k_rope (B,S,rd), roped
+    over a singleton head axis."""
+    dkv = x @ p["w_dkv"]
+    c_kv = rms_norm(dkv[..., : cfg.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+    k_rope = rope(dkv[..., None, cfg.kv_lora_rank:], positions, cfg.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def mla_queries(cfg: ModelConfig, p, x, positions):
+    hd = cfg.hd
+    cq = rms_norm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
+    q = _heads(cq, p["w_uq"])
+    return q[..., :hd], rope(q[..., hd:], positions, cfg.rope_theta)
+
+
+def mla_attend_train(cfg: ModelConfig, p, x, positions):
+    """Full-sequence MLA: per-head k/v materialised from the latents."""
+    c_kv, k_rope = mla_latents(cfg, p, x, positions)
+    q_nope, q_rope = mla_queries(cfg, p, x, positions)
+    k_nope = _heads(c_kv, p["w_uk"])
+    v = _heads(c_kv, p["w_uv"])
+    k_rope_h = k_rope[:, :, None, :].expand(k_rope.shape[:2] + (cfg.n_heads, cfg.rope_head_dim))
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope_h], dim=-1)
+    out = flash_attention(q_full, k_full, v, causal=True)
+    return _merge_heads(out, p["wo"]), (c_kv, k_rope)
+
+
+def mla_attend_decode(cfg: ModelConfig, p, x, positions, cache, cache_len):
+    """Absorbed-form decode: score directly against the latent cache.
+
+    q̃ = q_nope · W_uk  →  (B, 1, H, r); a token's cache is (r + rd).
+    """
+    c_cache, r_cache = cache                     # (B, S, r), (B, S, rd)
+    c_new, k_rope_new = mla_latents(cfg, p, x, positions)
+    c_cache = _scatter_step(c_cache, c_new, cache_len)
+    r_cache = _scatter_step(r_cache, k_rope_new, cache_len)
+    S = c_cache.shape[1]
+
+    q_nope, q_rope = mla_queries(cfg, p, x, positions)
+    q_abs = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])     # absorbed
+    s = (torch.einsum("bshr,btr->bhst", q_abs.float(), c_cache.float())
+         + torch.einsum("bshk,btk->bhst", q_rope.float(), r_cache.float())
+         ) * _inv_sqrt(cfg.hd + cfg.rope_head_dim)
+    mask = torch.arange(S, device=x.device)[None, :] < (cache_len + 1)[:, None]
+    s = torch.where(mask[:, None, None, :], s, -torch.inf)
+    pr = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhst,btr->bshr", pr, c_cache.float())
+    out = torch.einsum("bshr,rhk->bshk", ctx, p["w_uv"].float())
+    return _merge_heads(out.to(x.dtype), p["wo"]), (c_cache, r_cache)

@@ -1,0 +1,221 @@
+"""Shared model substrate: the config, the parameter builder, the core layers.
+
+Parameters are plain trees (nested dicts of tensors) with the reference's
+keys and shapes: block parameters carry a leading ``n_layers`` axis, so a
+checkpoint's leaf names (``params/blocks/attn/wq``) match the reference's.
+Every leaf is made through a :class:`ParamBuilder` callback, which runs in
+one of two modes:
+
+* ``init``  — draw the tensors from an explicit ``torch.Generator`` on its
+  device, one leaf at a time (the float32 temporary is one leaf);
+* ``shape`` — ``meta`` tensors: shapes and dtypes, no memory.
+
+The reference's third mode (``spec``: JAX ``PartitionSpec``s, with
+``param_specs``/``param_shardings``/``batch_spec``) goes with the training
+substrate's sharding (ROADMAP.md queue 1, item 9, slice 3).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+
+SLICE_FAMILIES = "ROADMAP.md queue 1, item 9, slice 2"   # MoE, rwkv6, zamba2, encdec
+SLICE_TRAINING = "ROADMAP.md queue 1, item 9, slice 3"   # losses, train/, shardings
+
+
+# ---------------------------------------------------------------------------
+# Config
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """One config covers all 10 assigned architectures via ``family``."""
+
+    name: str = "model"
+    family: str = "decoder"          # decoder | encdec | rwkv6 | zamba2
+    n_layers: int = 12
+    d_model: int = 1024
+    n_heads: int = 16
+    n_kv_heads: int = 16
+    d_ff: int = 4096
+    vocab: int = 32000
+    head_dim: int = 0                # 0 -> d_model // n_heads
+
+    # mlp options
+    gated_mlp: bool = True           # False: plain GELU MLP (starcoder2)
+
+    # attention options
+    qkv_bias: bool = False           # qwen1.5
+    qk_norm: bool = False            # qwen3 / chameleon
+    rope_theta: float = 10_000.0
+
+    # MLA (minicpm3)
+    mla: bool = False
+    q_lora_rank: int = 768
+    kv_lora_rank: int = 256
+    rope_head_dim: int = 32
+
+    # MoE (qwen3-moe, llama4)
+    moe: bool = False
+    n_experts: int = 0
+    top_k: int = 1
+    moe_d_ff: int = 0
+    n_shared_experts: int = 0        # llama4 shared expert
+    moe_every: int = 1               # llama4: MoE every k-th layer, dense otherwise
+    dense_d_ff: int = 0              # d_ff of the interleaved dense layers
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 1e-2
+
+    # SSM (rwkv6 / zamba2-mamba2)
+    ssm_state: int = 64
+    ssm_chunk: int = 64
+    attn_every: int = 6              # zamba2: shared attn block period
+
+    # enc-dec (seamless-m4t)
+    enc_layers: int = 0
+
+    # numerics / structure; ``remat`` and ``scan_layers`` change nothing on
+    # a forward-only path (the layers run one after another in Python)
+    dtype: Any = torch.bfloat16
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    remat: bool = True
+    logits_chunk: int = 512
+    scan_layers: bool = True
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def param_count(self) -> int:
+        """Total parameter count N, counted over ``meta`` tensors."""
+        return sum(t.numel() for _, t in tree_leaves(init_params(self, mode="shape")))
+
+    def active_param_count(self) -> int:
+        """Active-per-token N: == N for dense (MoE's top-k share of the
+        experts comes with its blocks, item 9, slice 2)."""
+        return self.param_count()
+
+
+def tree_leaves(tree, path: tuple = ()) -> list[tuple[tuple, Any]]:
+    """``(path, leaf)`` of a tree of nested dicts, in sorted key order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k], path + (k,))]
+    return [(path, tree)]
+
+
+def tree_map(fn, tree):
+    """``tree`` with every leaf of its nested dicts replaced by ``fn(leaf)``."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+# ---------------------------------------------------------------------------
+# Parameter builder
+# ---------------------------------------------------------------------------
+class ParamBuilder:
+    """Makes one leaf per call; see the module docstring.  ``axes`` (the
+    reference's logical axes, which its ``spec`` mode reads) are taken and
+    unused, so the builders read as the reference's."""
+
+    def __init__(self, cfg: ModelConfig, mode: str, generator: torch.Generator | None = None):
+        if mode not in ("init", "shape"):
+            raise ValueError(f"ParamBuilder mode {mode!r}: 'init' or 'shape' "
+                             f"('spec' waits for {SLICE_TRAINING})")
+        if mode == "init" and generator is None:
+            raise ValueError("ParamBuilder mode 'init' needs a torch.Generator")
+        self.cfg = cfg
+        self.mode = mode
+        self.generator = generator
+
+    def __call__(self, shape: Sequence[int], axes: Sequence[str | None],
+                 init: str = "normal", scale: float | None = None) -> torch.Tensor:
+        shape = tuple(int(s) for s in shape)
+        dtype = self.cfg.dtype
+        if self.mode == "shape":
+            return torch.empty(shape, dtype=dtype, device="meta")
+        dev = self.generator.device
+        if init == "zeros":
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        if init == "ones":
+            return torch.ones(shape, dtype=dtype, device=dev)
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+        s = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+        w = torch.randn(shape, generator=self.generator, dtype=torch.float32, device=dev)
+        return w.mul_(s).to(dtype)
+
+
+def init_params(cfg: ModelConfig, mode: str = "init", generator: torch.Generator | None = None):
+    """The family's parameter tree; the decoder family is ported."""
+    from repro_torch.models import transformer
+
+    if cfg.family == "decoder":
+        return transformer.build_params(cfg, ParamBuilder(cfg, mode, generator))
+    if cfg.family in ("encdec", "rwkv6", "zamba2"):
+        raise NotImplementedError(f"the {cfg.family} family is not ported yet ({SLICE_FAMILIES})")
+    raise ValueError(f"unknown family {cfg.family}")
+
+
+def params_from_numpy(cfg: ModelConfig, tree, device=None):
+    """The reference's parameter tree (nested dicts of numpy arrays, as
+    ``np.asarray`` gives its leaves) as the port's tree of tensors on
+    ``device`` (``None`` = the card).  Keys, shapes and dtypes must be those
+    :func:`init_params` builds for ``cfg``.  A bfloat16 leaf (an
+    ``ml_dtypes`` array, which ``torch.from_numpy`` refuses) is carried
+    across as its 16-bit words."""
+    from repro_torch.kernels.util import resolve_device
+
+    dev = resolve_device(device)
+    want = dict(tree_leaves(init_params(cfg, mode="shape")))
+    got = dict(tree_leaves(tree))
+    if want.keys() != got.keys():
+        raise ValueError(f"parameter keys differ from {cfg.name}'s: "
+                         f"{sorted(set(want) ^ set(got))}")
+
+    def leaf(a) -> torch.Tensor:
+        a = np.array(a)                  # a writable copy
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(dev)
+        return torch.from_numpy(a).to(dev)
+
+    out = tree_map(leaf, tree)
+    for path, t in tree_leaves(out):
+        w = want[path]
+        if t.shape != w.shape or t.dtype != w.dtype:
+            raise ValueError(f"{'/'.join(path)}: {tuple(t.shape)} {t.dtype}, "
+                             f"{cfg.name} has {tuple(w.shape)} {w.dtype}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Core layers (functional)
+# ---------------------------------------------------------------------------
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Normalised in float32, cast back to ``x``'s dtype, then scaled by
+    ``gamma`` in that dtype (the reference's rounding order)."""
+    x32 = x.float()
+    scale = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    return (x32 * scale).to(x.dtype) * gamma
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding over the last axis, the two halves concatenated (not
+    interleaved); x (..., S, H, hd), positions (..., S); angles in float32."""
+    half = x.shape[-1] // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32, device=x.device) / half))
+    ang = positions[..., :, None].float() * freqs           # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    g = x @ w_gate
+    u = x @ w_up
+    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+    return h @ w_down

@@ -1,0 +1,195 @@
+"""Decoder-only transformer LM, the dense path: GQA with qkv-bias or
+qk-norm, MLA, SwiGLU or plain GELU MLP, early-fusion embeddings.
+
+Layers are stacked (a leading ``n_layers`` axis on every block parameter,
+as the reference stacks them for its ``lax.scan``) and run one after
+another on slices ``p[i]``.  MoE blocks (``moe=True``) wait for ROADMAP.md
+queue 1, item 9, slice 2; the losses (``lm_loss``, ``loss_fn``) for slice 3.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.util import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.common import SLICE_FAMILIES, ModelConfig, rms_norm, swiglu, tree_map
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+def _build_blocks(cfg: ModelConfig, b, n_layers: int, *, moe: bool, d_ff: int):
+    import dataclasses
+
+    if moe:
+        raise NotImplementedError(f"MoE blocks are not ported yet ({SLICE_FAMILIES})")
+    L = (n_layers,)
+    lax_ = ("layers",)
+    cfg_l = dataclasses.replace(cfg, n_layers=n_layers)
+    blocks: dict[str, Any] = {
+        "ln1": b(L + (cfg.d_model,), lax_ + ("embed",), init="ones"),
+        "ln2": b(L + (cfg.d_model,), lax_ + ("embed",), init="ones"),
+    }
+    if cfg.mla:
+        blocks["attn"] = attn.build_mla_params(cfg_l, b)
+    else:
+        blocks["attn"] = attn.build_gqa_params(cfg_l, b)
+    if cfg.gated_mlp:
+        blocks["mlp"] = {
+            "w_gate": b(L + (cfg.d_model, d_ff), lax_ + ("embed", "mlp")),
+            "w_up": b(L + (cfg.d_model, d_ff), lax_ + ("embed", "mlp")),
+            "w_down": b(L + (d_ff, cfg.d_model), lax_ + ("mlp", "embed")),
+        }
+    else:  # plain 2-matrix GELU MLP (starcoder2 / GPT-BigCode style)
+        blocks["mlp"] = {
+            "w_up": b(L + (cfg.d_model, d_ff), lax_ + ("embed", "mlp")),
+            "w_down": b(L + (d_ff, cfg.d_model), lax_ + ("mlp", "embed")),
+        }
+    return blocks
+
+
+def build_params(cfg: ModelConfig, b):
+    params = {
+        "embed": b((cfg.vocab, cfg.d_model), ("vocab", "embed"), scale=0.02),
+        "blocks": _build_blocks(cfg, b, cfg.n_layers, moe=cfg.moe, d_ff=cfg.d_ff),
+        "ln_f": b((cfg.d_model,), ("embed",), init="ones"),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = b((cfg.d_model, cfg.vocab), ("embed", "vocab"))
+    return params
+
+
+def layer(blocks, i: int):
+    """The parameters (or cache) of layer ``i`` of a stacked tree."""
+    if isinstance(blocks, tuple):
+        return tuple(a[i] for a in blocks)
+    return tree_map(lambda a: a[i], blocks)
+
+
+def _stack(per_layer: list):
+    """Per-layer (a, b) cache pairs as one stacked (L, ...) pair."""
+    return tuple(torch.stack(parts) for parts in zip(*per_layer))
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+def _ffn(cfg: ModelConfig, p_l, h):
+    mlp = p_l["mlp"]
+    if "w_gate" not in mlp:
+        # jax.nn.gelu's default is the tanh approximation
+        a = F.gelu((h @ mlp["w_up"]).float(), approximate="tanh").to(h.dtype)
+        return a @ mlp["w_down"], 0.0
+    return swiglu(h, mlp["w_gate"], mlp["w_up"], mlp["w_down"]), 0.0
+
+
+def block_train(cfg: ModelConfig, p_l, x, positions):
+    """One decoder block, full-sequence causal.  Returns (x, aux, kv)."""
+    h = rms_norm(x, p_l["ln1"], cfg.norm_eps)
+    if cfg.mla:
+        a, kv = attn.mla_attend_train(cfg, p_l["attn"], h, positions)
+    else:
+        a, kv = attn.gqa_attend(cfg, p_l["attn"], h, positions, causal=True)
+    x = x + a
+    h = rms_norm(x, p_l["ln2"], cfg.norm_eps)
+    f, aux = _ffn(cfg, p_l, h)
+    return x + f, aux, kv
+
+
+def block_decode(cfg: ModelConfig, p_l, x, positions, cache_l, cache_len):
+    h = rms_norm(x, p_l["ln1"], cfg.norm_eps)
+    if cfg.mla:
+        a, new_cache = attn.mla_attend_decode(cfg, p_l["attn"], h, positions, cache_l, cache_len)
+    else:
+        a, new_cache = attn.gqa_attend(cfg, p_l["attn"], h, positions, cache=cache_l,
+                                       cache_len=cache_len)
+    x = x + a
+    h = rms_norm(x, p_l["ln2"], cfg.norm_eps)
+    f, aux = _ffn(cfg, p_l, h)
+    return x + f, aux, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Stacks
+# ---------------------------------------------------------------------------
+def _dense_only(cfg: ModelConfig) -> None:
+    if cfg.moe:
+        raise NotImplementedError(f"MoE blocks are not ported yet ({SLICE_FAMILIES})")
+
+
+def embed_tokens(cfg: ModelConfig, params, tokens, embeds=None):
+    x = params["embed"][tokens.long()]
+    if embeds is not None:
+        # early fusion: precomputed modality embeddings are prepended
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
+    return x
+
+
+def forward(cfg: ModelConfig, params, tokens, *, embeds=None, collect_cache=False):
+    """Full causal forward.  Returns (hidden, aux, caches|None)."""
+    _dense_only(cfg)
+    x = embed_tokens(cfg, params, tokens, embeds)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    aux = 0.0
+    caches = []
+    for i in range(cfg.n_layers):
+        x, a, kv = block_train(cfg, layer(params["blocks"], i), x, positions)
+        aux = aux + a
+        if collect_cache:
+            caches.append(kv)
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return x, aux, (_stack(caches) if collect_cache else None)
+
+
+def unembed(cfg: ModelConfig, params, h):
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return h @ w
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+class DecodeState(NamedTuple):
+    cache: Any                  # per-layer stacked KV (or MLA latent) cache
+    cache_len: torch.Tensor     # (B,) int32
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *, device=None):
+    """An empty decode cache on ``device`` (``None`` = the card)."""
+    _dense_only(cfg)
+    dev = resolve_device(device)
+    dtype = dtype or cfg.dtype
+    L = cfg.n_layers
+    if cfg.mla:
+        cache = (torch.zeros((L, batch, max_len, cfg.kv_lora_rank), dtype=dtype, device=dev),
+                 torch.zeros((L, batch, max_len, cfg.rope_head_dim), dtype=dtype, device=dev))
+    else:
+        kv_shape = (L, batch, max_len, cfg.n_kv_heads, cfg.hd)
+        cache = (torch.zeros(kv_shape, dtype=dtype, device=dev),
+                 torch.zeros(kv_shape, dtype=dtype, device=dev))
+    return DecodeState(cache, torch.zeros((batch,), dtype=torch.int32, device=dev))
+
+
+def prefill(cfg: ModelConfig, params, tokens, *, embeds=None):
+    """Forward over the prompt; returns the hidden states and the caches."""
+    hidden, _, caches = forward(cfg, params, tokens, embeds=embeds, collect_cache=True)
+    return hidden, caches
+
+
+def decode_step(cfg: ModelConfig, params, state: DecodeState, tokens):
+    """One decode step for the whole batch: tokens (B, 1) -> logits (B, V)."""
+    _dense_only(cfg)
+    x = embed_tokens(cfg, params, tokens)
+    positions = state.cache_len[:, None]
+    caches = []
+    for i in range(cfg.n_layers):
+        x, _, nc = block_decode(cfg, layer(params["blocks"], i), x, positions,
+                                layer(state.cache, i), state.cache_len)
+        caches.append(nc)
+    h = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    logits = unembed(cfg, params, h)[:, 0]
+    return DecodeState(_stack(caches), state.cache_len + 1), logits

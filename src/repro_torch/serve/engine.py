@@ -1,18 +1,19 @@
-"""Serving substrate, the index half: retrieval and streaming updates on an
-attached :class:`~repro_torch.core.index.UGIndex`.
+"""Serving substrate: embedding and decoding with an LM tower, retrieval and
+streaming updates on an attached :class:`~repro_torch.core.index.UGIndex`.
 
+``embed`` mean-pools a tower's final hidden states and L2-normalises them:
+the vectors the paper's unified interval-aware index is built over (the
+retrieval deployment in ``launch/serve.py``: embed → UG search under
+IF/IS/RF/RS).  ``generate`` decodes greedily or by sampling.
 ``attach_index`` + ``retrieve`` run interval-aware top-k on the attached
-index.  ``retrieve_mixed`` is the production mixed-workload path: each
-request of a batch carries its own IF/IS/RF/RS semantics, and the batch is
-padded to a shape bucket (:data:`BATCH_BUCKETS`), as the reference pads it
-to reuse its compiled programs; here the buckets keep the runtime's batches
-to a few shapes.  ``upsert``/``remove`` stream inserts and deletes through
-the update path (``core/updates.py``) and swap the engine's index reference.
-
-The reference's engine also embeds tokens with an LM tower (``embed``,
-``generate``).  The port's towers are not written yet (ROADMAP queue 1
-item 9): every method here takes precomputed vectors (``q_v=``, ``x=``),
-and passing tokens in their place raises ``NotImplementedError``.
+index, embedding token batches unless vectors are given (``q_v=``).
+``retrieve_mixed`` is the production mixed-workload path: each request of
+a batch carries its own IF/IS/RF/RS semantics, and the batch is padded to a
+shape bucket (:data:`BATCH_BUCKETS`), as the reference pads it to reuse its
+compiled programs; here the buckets keep the runtime's batches to a few
+shapes.  ``upsert``/``remove`` stream inserts and deletes through the
+update path (``core/updates.py``) and swap the engine's index reference.
+An engine without a model takes vectors only (``q_v=``, ``x=``).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from repro_torch.core.index import UGIndex
 from repro_torch.core.search import SearchResult, search_mixed
 from repro_torch.core.store import as_tensor
 from repro_torch.kernels.util import pad_rows
+from repro_torch.models.api import Model
 
 # Request-count buckets for ``retrieve_mixed``: a batch of B requests is
 # padded to the smallest bucket ≥ B (beyond the table: the next multiple of
@@ -35,9 +37,6 @@ BATCH_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024)
 # The window of a pad row: no interval lies inside ``[2, -2]``, so Alg. 5
 # certifies NULL under IF and the row never expands a node.
 DEAD_WINDOW = (2.0, -2.0)
-
-_NO_TOWER = ("the port has no LM tower yet (ROADMAP.md queue 1 item 9): pass "
-             "precomputed vectors (q_v= / x=) in place of tokens")
 
 
 def bucket_batch_size(b: int, buckets: Sequence[int] = BATCH_BUCKETS) -> int:
@@ -114,7 +113,7 @@ def search_padded(index: UGIndex, q_v: torch.Tensor, q_int: torch.Tensor, flags:
 
 @dataclasses.dataclass
 class ServeEngine:
-    model: Any = None                   # the LM tower (ROADMAP queue 1 item 9)
+    model: Model | None = None          # the LM tower; None: vectors only
     params: Any = None
     index: UGIndex | None = None
     search_backend: str | None = None   # kernels: cuda | torch, None = by device
@@ -216,9 +215,56 @@ class ServeEngine:
         self.index = index.delete(ids, repair=repair)
         return B
 
-    # -------------------------------------------------------------- LM half
-    def embed(self, tokens, mask=None):
-        raise NotImplementedError(_NO_TOWER)
+    # ------------------------------------------------------------- embed
+    def _tower(self) -> Model:
+        if self.model is None:
+            raise ValueError("this engine has no model: pass precomputed vectors "
+                             "(q_v= / x=) in place of tokens")
+        return self.model
 
-    def generate(self, prompts, max_new: int = 16, *, temperature: float = 0.0, seed: int = 0):
-        raise NotImplementedError(_NO_TOWER)
+    @torch.no_grad()
+    def embed(self, tokens, mask=None) -> torch.Tensor:
+        """(B, S) tokens -> (B, d) float32 embeddings on the parameters'
+        device: the mask-weighted mean of the final hidden states (``mask``
+        defaults to all ones), L2-normalised in float32 with the norm held
+        at least 1e-6."""
+        model = self._tower()
+        dev = self.params["embed"].device
+        tokens = as_tensor(tokens, torch.int64, dev)
+        mask = (torch.ones(tokens.shape, dtype=torch.float32, device=dev) if mask is None
+                else as_tensor(mask, torch.float32, dev))
+        hidden, _, _ = model.forward(self.params, tokens)
+        m = mask[..., None].to(hidden.dtype)
+        pooled = (hidden * m).sum(dim=1) / m.sum(dim=1).clamp_min(1.0)
+        pooled = pooled.float()
+        # L2-normalised: cosine and euclidean order agree for the index
+        return pooled / torch.linalg.vector_norm(pooled, dim=-1, keepdim=True).clamp_min(1e-6)
+
+    # ------------------------------------------------------------- decode
+    @torch.no_grad()
+    def generate(self, prompts, max_new: int = 16, *, temperature: float = 0.0,
+                 seed: int = 0) -> torch.Tensor:
+        """Greedy (``temperature == 0``) or sampled continuation, (B, max_new)
+        int32.  The prompt is fed token by token through the decode path;
+        only the last prompt step's logits are kept.  Sampling draws from a
+        ``torch.Generator`` seeded with ``seed`` (the port's own draws, not
+        the reference's)."""
+        model = self._tower()
+        dev = self.params["embed"].device
+        prompts = as_tensor(prompts, torch.int32, dev)
+        B, S = prompts.shape
+        state = model.init_decode_state(self.params, B, S + max_new)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        logits = None
+        for t in range(S):
+            state, logits = model.decode_step(self.params, state, prompts[:, t:t + 1])
+        outs = []
+        for _ in range(max_new):
+            if temperature > 0:
+                probs = torch.softmax(logits.float() / temperature, dim=-1)
+                cur = torch.multinomial(probs, 1, generator=gen).to(torch.int32)
+            else:
+                cur = logits.argmax(dim=-1, keepdim=True).to(torch.int32)
+            outs.append(cur)
+            state, logits = model.decode_step(self.params, state, cur)
+        return torch.cat(outs, dim=1)

@@ -340,7 +340,7 @@ def test_empty_batches_never_dispatch():
         bucket_batch_size(0)
     with pytest.raises(ValueError):
         bucket_batch_size(-3)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="no model"):
         eng.retrieve_mixed(np.zeros((1, 4), np.int32), np.zeros((1, 2), np.float32), [FLAG_IF])
 
 
