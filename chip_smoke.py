@@ -184,14 +184,50 @@ the script exits non-zero without printing a result):
    printed; (g) the launches of ``expand_score``, ``beam_merge`` and
    ``prune_sweep`` over (c)'s build and timed searches (before its checks),
    each above 0.
+12. the other tower families (``models/moe``, ``ssm``, ``rwkv_model``,
+   ``zamba``, ``encdec``): (a) the reduced qwen3-moe, llama4-maverick,
+   rwkv6, zamba2 and seamless-m4t-medium towers (float32, TF32 off) on the
+   card and on the CPU with the same weights, the leaves the init makes
+   constant redrawn as in the CPU tests: hidden states, MoE aux,
+   embeddings (encdec: ``encode`` and ``decode_train``) and 12 decode
+   steps' logits within atol = rtol = 1e-4, the MoE towers' expert choices
+   equal, the smallest top-k margin printed; (b) rwkv6-1.6b and
+   zamba2-2.7b whole, qwen3-moe-235b-a22b at full width with 6 layers and
+   llama4-maverick-400b-a17b at full width with 2 (the cuts and their
+   memory arithmetic printed), bf16 from a seeded generator: parameter
+   and active-parameter counts equal to the CPU's, ``embed`` of 16,384
+   documents of 32 tokens in batches of 256 (seconds, tokens/s, peak
+   memory, TFLOP/s over 2 × the active parameters outside
+   ``embed``/``unembed``), every embedding finite and of unit norm within
+   1e-5; (c) 4 prompts × 16 tokens through ``decode_step`` against
+   ``prefill`` + ``unembed``: rwkv6 and zamba2 in bf16 and in float32 on
+   the same weights upcast, positions 0 and 1 held (the bounds and their
+   reasons at ``decode_checks``), the MoE towers printed with both sides'
+   dropped assignments and held to nothing (the capacity depends on the
+   call's tokens); and seamless-m4t-medium at full width, 8 × 64 seeded
+   frames encoded, 16 ``decode_step``s against ``decode_train``, held as
+   rwkv6; (d) greedy
+   ``generate`` of 16 tokens for 8 prompts of 16 on the four towers of (b);
+   (e) ``UGIndex.build`` over qwen3-moe's 16,384 embeddings (d = 4096)
+   with the serve CLI's ``UGConfig``, a mixed search of 2,000 embedded
+   queries cycling IF/IS/RS/RF at ef 64, k 10, W 4: QPS (median of 3),
+   iterations, recall@10 per semantics against ``brute_force`` (tripwire:
+   mean ≥ 0.02), on the first 4,096 rows the build and the search with
+   ``cuda`` equal to ``torch`` bitwise, and the launches of
+   ``expand_score``, ``beam_merge`` and ``prune_sweep`` over the build and
+   timed searches, each above 0; (f) ``python -m repro_torch.launch.serve
+   --arch A --no-reduced --docs 2000 --queries 64 --mixed`` in a subprocess
+   on the card for rwkv6-1.6b and zamba2-2.7b: exit 0, its lines printed.
 
 Before the last lines the script checks that no process it started (the
 compiler, the spawned ranks, multiprocessing's resource tracker) is still
-running.  The last line is ``{"ok": true, "device": {...}}``.  Nothing here imports
+running; the line before the kernels line gives the run's seconds and each
+phase's.  The last line is ``{"ok": true, "device": {...}}``.  Nothing here imports
 JAX or the reference package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import pathlib
@@ -228,7 +264,7 @@ UPDATE_KERNELS = ("prune_sweep", "expand_score", "beam_merge")   # phase 7's pat
 N_SERVE_WRITE = 1_000          # phase 8(b): ids removed and rows upserted mid-stream
 SERVE_MAX_BATCH = 256          # phase 8(b): the runtime's micro-batch cap
 SERVE_IN_FLIGHT = 512          # phase 8(b): the closed-loop client's requests in flight
-SERVE_BENCH = dict(nreq=4_096, batch=256)                        # phase 8(c)
+SERVE_BENCH = dict(nreq=4_096, batch=256, timed_seconds=0.0)    # phase 8(c): one round
 SERVE_KERNELS = ("expand_score", "beam_merge", "prune_sweep")    # phase 8's path
 N_SHARDS = 4                   # phase 9: shards of the sharded index, all held by one process
 SHARD_KERNELS = ("prune_sweep", "expand_score", "beam_merge")    # phase 9's path
@@ -254,6 +290,44 @@ DECODE_CHECK = (4, 16)         # (d): prompts x tokens of decode against forward
 GENERATE = dict(prompts=8, prompt_len=16, max_new=16)            # (e)
 TOWER_KERNELS = ("expand_score", "beam_merge", "prune_sweep")    # (c)'s path
 TOWER_CLI_TIMEOUT = 600        # (f): seconds the serve CLI's subprocess may take
+# phase 12: the other tower families
+FAMILY_REDUCED = ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b", "rwkv6-1.6b",
+                  "zamba2-2.7b", "seamless-m4t-medium")                # (a)
+# (b)-(d): arch -> (layers it is cut to, or None; param_count; active_param_count),
+# the counts tests/test_torch_{recurrent,moe}.py hold against the reference
+FAMILY_TOWERS = {
+    "rwkv6-1.6b": (None, 1_583_892_480, 1_583_892_480),
+    "zamba2-2.7b": (None, 2_422_386_848, 2_422_386_848),
+    "qwen3-moe-235b-a22b": (6, 16_171_193_856, 2_581_648_896),
+    "llama4-maverick-400b-a17b": (2, 18_679_096_320, 2_698_798_080),
+}
+FAMILY_CUTS = {
+    "qwen3-moe-235b-a22b": (
+        "n_layers 94 -> 6 at full width: a layer is ~2.488 B parameters (2.416 B of them "
+        "experts); 6 layers + embed/unembed are ~16.2 B (32.4 GB in bf16), and the init "
+        "draws the stacked expert leaf (6, 128, 4096, 1536) in float32 whole, a 19.3 GB "
+        "temporary: peak ~52 GB of 80 (8 layers: ~68 GB, no room for the dispatch)"),
+    "llama4-maverick-400b-a17b": (
+        "n_layers 48 -> 2 at full width: one super-layer, a dense block (d_ff 16384) and "
+        "an MoE block (128 experts + the shared expert): ~18.7 B parameters (37.4 GB in "
+        "bf16) plus a 21.5 GB float32 temporary for one expert leaf"),
+}
+N_FAMILY_DOCS = 16_384         # (b): documents each full-width tower embeds
+INDEX_ARCH = "qwen3-moe-235b-a22b"   # (e): the tower whose embeddings (d = 4096) are indexed
+N_FAMILY_QUERIES = 2_000       # (e): embedded queries of the mixed search
+N_FAMILY_CHECK = 4_096         # (e): rows of the cuda == torch build and search check
+FAMILY_DECODE = (4, 16)        # (c): prompts x tokens of decode against forward
+ENCDEC_ARCH = "seamless-m4t-medium"
+ENC_FRAMES = (8, 64)           # (c): batch x frames the encoder takes, at full width
+FAMILY_CLI_ARCHS = ("rwkv6-1.6b", "zamba2-2.7b")                     # (f)
+FAMILY_KERNELS = ("expand_score", "beam_merge", "prune_sweep")       # (e)'s path
+# (c): relative RMS of decode against forward held at (position 0, position
+# 1), by dtype and family, and below sqrt(2) over all positions (the
+# reasons stand at decode_checks)
+DECODE_TOL = {"bf16": {"rwkv6": (2 ** -5, 1.0), "zamba2": (2 ** -5, 1.0),
+                       "encdec": (2 ** -5, 1.0)},
+              "float32": {"rwkv6": (1e-3, 1e-3), "zamba2": (1e-3, 1e-3),
+                          "encdec": (2 ** -5, 0.15)}}
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 PEAK_TF32_PER_S = 495e12       # H100 SXM TF32 on the tensor cores, dense
@@ -1977,6 +2051,395 @@ def phase11_towers(dev, smi) -> dict:
     return launches
 
 
+# the leaves the reference's init makes constant (tests/torch_towers.py)
+ZERO_LEAVES = {"mu_r", "mu_k", "mu_v", "mu_w", "mu_g", "mu_ffn_k", "bonus", "decay_lora_b",
+               "dt_bias", "a_log"}
+ONE_LEAVES = {"d_skip", "gn"}
+
+
+def redraw_constant_leaves(params, generator):
+    """``params`` with the leaves the init makes constant redrawn from
+    ``generator`` (zeros as N(0, 0.5²), ones as 1 + N(0, 0.3²), the RWKV6
+    decay base as N(0, 4²)), as the CPU tests redraw them with numpy: at
+    the init's constants a dropped bonus, decay LoRA or token-shift mix
+    would not show."""
+    import torch
+
+    def draw(v, scale, shift=0.0):
+        w = torch.randn(v.shape, generator=generator, device=v.device)
+        return (shift + scale * w).to(v.dtype)
+
+    def walk(t):
+        out = {}
+        for k in sorted(t):
+            v = t[k]
+            if isinstance(v, dict):
+                v = walk(v)
+            elif k in ZERO_LEAVES:
+                v = draw(v, 0.5)
+            elif k in ONE_LEAVES:
+                v = draw(v, 0.3, 1.0)
+            elif k == "decay_base":
+                v = draw(v, 4.0)
+            out[k] = v
+        return out
+
+    return walk(params)
+
+
+@contextlib.contextmanager
+def recording_router():
+    """Records every MoE router call made inside the block: its expert
+    choices (T, K) on the CPU and the smallest gap between the k-th and the
+    (k+1)-th router probability of a token (its top-k margin)."""
+    import torch
+
+    from repro_torch.models import moe
+
+    calls, original = [], moe._router
+
+    def router(cfg, xt, w):
+        out = original(cfg, xt, w)
+        probs = torch.softmax(xt.float() @ w.float(), dim=-1)
+        top = probs.sort(dim=-1, descending=True).values
+        margin = float((top[:, cfg.top_k - 1] - top[:, cfg.top_k]).min())
+        calls.append((out[0].cpu(), margin))
+        return out
+
+    moe._router = router
+    try:
+        yield calls
+    finally:
+        moe._router = original
+
+
+def decode_checks(arch, cfg, params, tokens, frames, smi) -> None:
+    """Decode against forward (encdec: against ``decode_train``) of
+    ``tokens`` (B, S), in bf16 and in float32 on the same weights upcast
+    (TF32 off), each position's relative RMS printed, positions 0 and 1
+    held within ``DECODE_TOL`` and every position below sqrt(2).  Beside
+    it, position 1 decoded from a fresh state (the carry after step 0
+    dropped, its position kept) must read above position 1's bound: the
+    check would see a lost carry.
+
+    Why these tolerances (H100 80GB HBM3 at 700 W, full width, the
+    init's weights): a carried state dropped after step 0 reads
+    1.29-1.39 at position 1 in every family.  In float32 the recurrent
+    families' paths agree to 3e-6 at position 0 and 3.3e-4 (rwkv6) /
+    3.5e-5 (zamba2) at position 1, so 1e-3 holds the carry itself; the
+    encdec read 0.003 / 0.015 there, as its near one-hot attention (the
+    init draws wq/wk at 1/sqrt(n_heads)) lets float32 rounding flip the
+    key a head reads, so 2^-5 / 0.15, phase 11's decoder bounds.  In bf16
+    position 0 (no history: the paths differ by bf16 rounding of products
+    over other row counts through every layer) read 0.013-0.022, held
+    within 2^-5; at position 1 bf16 rounding flips whole heads: RWKV6's
+    per-head group norm rescales a head output (r₁·k₀)·v₀ whose sign a
+    rounding can flip, and attention is near one-hot, so position 1 read
+    0.11-0.48 and is held only below 1.0 (correlated), the float32 run
+    being the check of the carry."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import encdec, get_model
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.common import tree_map
+
+    B, S = tokens.shape
+    for name, dtype in (("bf16", torch.bfloat16), ("float32", torch.float32)):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        model = get_model(c)
+        p = tree_map(lambda a: a.to(dtype), params)
+        with torch.no_grad():
+            if c.family == "encdec":
+                enc = encdec.encode(c, p, frames)
+                full = tr.unembed(c, p, encdec.decode_train(c, p, tokens, enc)).float()
+                state = model.init_decode_state((p, frames), B, S)
+                del enc
+            else:
+                hidden, _ = model.prefill(p, {"tokens": tokens})
+                full = tr.unembed(c, p, hidden).float()
+                state = model.init_decode_state(p, B, S)
+                del hidden
+            first, _ = model.decode_step(p, state, tokens[:, :1])
+            _, dropped = model.decode_step(p, state._replace(cache_len=first.cache_len),
+                                           tokens[:, 1:2])
+            dropped = rel_rms(dropped.float(), full[:, 1])
+            per_pos, overall, agree = decode_against_forward(
+                model, p, full, [tokens[:, i:i + 1] for i in range(S)], state)
+        tol0, tol1 = DECODE_TOL[name][c.family]
+        emit(phase=12, part="c", card=smi, arch=arch, dtype=name, batch=B, tokens=S,
+             **({"frames": frames.shape[1]} if frames is not None else {}),
+             rel_rms=overall, rel_rms_by_position=per_pos, argmax_agreement=agree,
+             position1_with_the_carry_dropped=dropped,
+             tolerance=dict(first_position=tol0, second_position=tol1,
+                            all_positions=2 ** 0.5))
+        check(dropped > tol1, f"12c: {arch} {name}: position 1 without the carried state "
+                              f"reads {dropped}, within the bound {tol1}")
+        check(per_pos[0] <= tol0, f"12c: {arch} {name}: position 0's decode != forward: "
+                                  f"{per_pos[0]}")
+        check(per_pos[1] <= tol1, f"12c: {arch} {name}: position 1's decode != forward: "
+                                  f"{per_pos[1]}")
+        check(overall < 2 ** 0.5, f"12c: {arch} {name}: decode uncorrelated with forward: "
+                                  f"{overall}")
+        del p, full, state
+        torch.cuda.empty_cache()
+
+
+def decode_against_forward(model, params, full, step_inputs, state) -> tuple:
+    """Decode logits step by step from ``state`` against the forward's
+    ``full`` (B, S, V): (per-position relative RMS, all positions',
+    argmax agreement)."""
+    import torch
+
+    steps = []
+    for tok in step_inputs:
+        state, logits = model.decode_step(params, state, tok)
+        steps.append(logits.float())
+    inc = torch.stack(steps, dim=1)
+    check(bool(torch.isfinite(inc).all()), "decode logits not finite")
+    per_pos = [rel_rms(inc[:, i], full[:, i]) for i in range(full.shape[1])]
+    agree = float((inc.argmax(-1) == full.argmax(-1)).float().mean())
+    return per_pos, rel_rms(inc, full), agree
+
+
+def phase12_families(dev, smi) -> dict:
+    """The other tower families on the card: the five reduced towers against
+    the CPU, rwkv6, zamba2, qwen3-moe and llama4-maverick at full width
+    (embed, decode against forward, generate), seamless-m4t-medium's decode
+    against ``decode_train``, the index over qwen3-moe's d = 4096
+    embeddings and the serve CLI for rwkv6 and zamba2; returns the
+    launches of (e)."""
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import Semantics, UGConfig, UGIndex
+    from repro_torch.core import intervals as iv
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import EMBED_BATCH, embed_batches
+    from repro_torch.models import encdec, get_model, moe
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.serve import ServeEngine
+
+    # (a) the five reduced towers (float32, TF32 off) on the card and on the
+    # CPU with the same weights, the constant leaves redrawn.  Tolerance
+    # atol = rtol = 1e-4, phase 11(a)'s: the card's BLAS sums float32
+    # products in another order than the CPU's.  The MoE towers' expert
+    # choices must be equal; the smallest top-k margin tells a genuine
+    # near-tie from a fault.
+    reduced = {}
+    for arch in FAMILY_REDUCED:
+        cfg = get_arch(arch).reduced
+        model = get_model(cfg)
+        host = redraw_constant_leaves(model.init(torch.Generator().manual_seed(23)),
+                                      torch.Generator().manual_seed(24))
+        card = tree_map(lambda a: a.to(dev), host)
+        g = torch.Generator().manual_seed(25)
+        toks = torch.randint(0, cfg.vocab, (2, 12), generator=g)
+        frames = torch.randn((2, 6, cfg.d_model), generator=g)
+
+        def run(params, device):
+            t = toks.to(device)
+            out = {}
+            with torch.no_grad(), recording_router() as calls:
+                if cfg.family == "encdec":
+                    f = frames.to(device)
+                    out["encode"] = encdec.encode(cfg, params, f)
+                    out["decode_train"] = encdec.decode_train(cfg, params, t, out["encode"])
+                    state = model.init_decode_state((params, f), 2, 12)
+                else:
+                    out["hidden"], aux, _ = model.forward(params, t)
+                    out["aux"] = torch.as_tensor(aux, dtype=torch.float32)
+                    out["embed"] = ServeEngine(model, params).embed(t)
+                    state = model.init_decode_state(params, 2, 12)
+                logits = []
+                for i in range(12):
+                    state, lg = model.decode_step(params, state, t[:, i:i + 1])
+                    logits.append(lg)
+                out["decode_logits"] = torch.stack(logits, dim=1)
+            return {k: v.cpu() for k, v in out.items()}, calls
+
+        on_cpu, calls_cpu = run(host, "cpu")
+        on_card, calls_card = run(card, dev)
+        errs = {k: max_abs_err(on_card[k], on_cpu[k]) for k in on_cpu}
+        within = all(torch.allclose(on_card[k], on_cpu[k], atol=1e-4, rtol=1e-4)
+                     for k in on_cpu)
+        row = dict(max_abs_err=errs, within_tolerance=within)
+        if cfg.moe:
+            same = (len(calls_cpu) == len(calls_card)
+                    and all(torch.equal(a, b) for (a, _), (b, _) in zip(calls_cpu, calls_card)))
+            row.update(router_calls=len(calls_card), expert_choices_equal=same,
+                       smallest_top_k_margin=min(m for _, m in calls_cpu + calls_card))
+            check(same, f"12a: {arch}'s expert choices on the card != on the CPU: {row}")
+        reduced[arch] = row
+        check(within, f"12a: {arch}'s reduced tower on the card != on the CPU: {errs}")
+    emit(phase=12, part="a", card=smi, tolerance="atol = rtol = 1e-4", reduced_towers=reduced)
+
+    # (b)-(d) the full-width towers in bf16 from a seeded generator, one at a
+    # time: counts, embed of N_FAMILY_DOCS documents, decode against
+    # forward, generate; the INDEX_ARCH tower also embeds (e)'s queries
+    kept = {}
+    for arch, (cut, want_params, want_active) in FAMILY_TOWERS.items():
+        cfg = get_arch(arch).config
+        if cut is not None:
+            cfg = dataclasses.replace(cfg, n_layers=cut)
+        model = get_model(cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params, init_s = timed(lambda: model.init(torch.Generator(device=dev).manual_seed(0)))
+        init_peak = torch.cuda.max_memory_allocated()
+        n_params = sum(a.numel() for _, a in tree_leaves(params))
+        active = cfg.active_param_count()
+        check(n_params == cfg.param_count() == want_params and active == want_active,
+              f"12b: {arch} has {n_params} parameters ({cfg.param_count()} counted, "
+              f"{active} active), not {want_params} ({want_active} active)")
+        n_body = active - params["embed"].numel() - params["unembed"].numel()
+        engine = ServeEngine(model, params)
+        g = torch.Generator(device=dev).manual_seed(1)
+        docs = torch.randint(0, cfg.vocab, (N_FAMILY_DOCS, DOC_LEN), generator=g, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        engine.embed(docs[:EMBED_BATCH])                   # warm-up
+        x, embed_s = timed(lambda: embed_batches(engine, docs))
+        tokens = N_FAMILY_DOCS * DOC_LEN
+        norms = x.norm(dim=-1)
+        unit = bool(torch.isfinite(x).all()) and float((norms - 1).abs().max()) <= 1e-5
+        emit(phase=12, part="b", card=smi, arch=arch, family=cfg.family, dtype=str(cfg.dtype),
+             n_layers=cfg.n_layers, cut=FAMILY_CUTS.get(arch, "none: the whole config"),
+             param_count=n_params, active_param_count=active,
+             active_params_outside_embed_unembed=n_body, init_seconds=init_s,
+             init_max_memory_allocated=init_peak, docs=N_FAMILY_DOCS, doc_len=DOC_LEN,
+             batch=EMBED_BATCH, d=x.shape[1], embed_seconds=embed_s,
+             tokens_per_s=tokens / embed_s, tflops=2 * n_body * tokens / embed_s / 1e12,
+             peak_bf16_tflops=PEAK_BF16_PER_S / 1e12,
+             bound_seconds=2 * n_body * tokens / PEAK_BF16_PER_S,
+             **({"capacity_note": f"the experts compute every capacity slot, up to "
+                                  f"capacity_factor = {cfg.capacity_factor} x the active "
+                                  f"expert FLOPs counted here"} if cfg.moe else {}),
+             max_norm_err=float((norms - 1).abs().max()),
+             embed_max_memory_allocated=torch.cuda.max_memory_allocated(),
+             checks=dict(counts_equal=True, unit_norm=unit))
+        check(unit, f"12b: {arch}: an embedding is not finite or not of unit norm within 1e-5")
+
+        # (c) decode against forward: rwkv6 and zamba2 in bf16 and float32
+        # (decode_checks); MoE: the capacity depends on the tokens of the
+        # call (a forward over B*S tokens drops other assignments than a
+        # decode step over B), so nothing is held; the numbers and both
+        # sides' drops are printed
+        B, S = FAMILY_DECODE
+        prompts = torch.randint(0, cfg.vocab, (B, S), generator=g, device=dev)
+        if cfg.moe:
+            with torch.no_grad(), recording_router() as calls:
+                hidden, _ = model.prefill(params, {"tokens": prompts})
+                full = tr.unembed(cfg, params, hidden).float()
+                n_forward = len(calls)
+                per_pos, overall, agree = decode_against_forward(
+                    model, params, full, [prompts[:, i:i + 1] for i in range(S)],
+                    model.init_decode_state(params, B, S))
+            emit(phase=12, part="c", card=smi, arch=arch, dtype="bf16", batch=B, tokens=S,
+                 rel_rms=overall, rel_rms_by_position=per_pos, argmax_agreement=agree,
+                 held="nothing: the capacity differs between the calls",
+                 dropped_assignments=dict(
+                     forward=sum(moe.dropped_assignments(cfg, i) for i, _ in calls[:n_forward]),
+                     decode=sum(moe.dropped_assignments(cfg, i) for i, _ in calls[n_forward:])),
+                 capacity=dict(forward=moe.capacity(cfg, B * S), decode=moe.capacity(cfg, B)))
+            del hidden, full
+        else:
+            decode_checks(arch, cfg, params, prompts, None, smi)
+
+        # (d) greedy generation
+        gp = torch.randint(0, cfg.vocab, (GENERATE["prompts"], GENERATE["prompt_len"]),
+                           generator=g, device=dev)
+        out, gen_s = timed(lambda: engine.generate(gp, GENERATE["max_new"]))
+        check(tuple(out.shape) == (GENERATE["prompts"], GENERATE["max_new"])
+              and bool(((out >= 0) & (out < cfg.vocab)).all()), f"12d: {arch}: tokens off")
+        emit(phase=12, part="d", card=smi, arch=arch, **GENERATE, seconds=gen_s,
+             new_tokens_per_s=out.numel() / gen_s,
+             decode_steps_per_s=(GENERATE["prompt_len"] + GENERATE["max_new"]) / gen_s)
+        if arch == INDEX_ARCH:
+            q_tokens = torch.randint(0, cfg.vocab, (N_FAMILY_QUERIES, DOC_LEN), generator=g,
+                                     device=dev)
+            kept = dict(x=x, qv=embed_batches(engine, q_tokens), g=g)
+        del engine, params, docs, x, out
+        torch.cuda.empty_cache()
+
+    # (c) seamless-m4t-medium at full width: ENC_FRAMES seeded frames encoded,
+    # decode steps against decode_train (the reference's
+    # test_encdec_decode_matches_train at full width), in bf16 and float32;
+    # the cross-attention reads the same encoded K/V on both paths
+    cfg = get_arch(ENCDEC_ARCH).config
+    params = get_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    g = torch.Generator(device=dev).manual_seed(1)
+    frames = torch.randn((ENC_FRAMES[0], ENC_FRAMES[1], cfg.d_model), generator=g, device=dev)
+    toks = torch.randint(0, cfg.vocab, (ENC_FRAMES[0], FAMILY_DECODE[1]), generator=g,
+                         device=dev)
+    decode_checks(ENCDEC_ARCH, cfg, params, toks, frames, smi)
+    del params, frames
+    torch.cuda.empty_cache()
+
+    # (e) the index over INDEX_ARCH's embeddings: the serve CLI's UGConfig
+    # (NN-descent), a mixed search of the embedded queries, recall against
+    # brute_force; cuda == torch bitwise on the first N_FAMILY_CHECK rows
+    x, qv, g = kept["x"], kept["qv"], kept["g"]
+    ops.reset_launches()                                   # (e)'s path
+    ints = iv.sample_uniform_intervals(g, N_FAMILY_DOCS)
+    ucfg = UGConfig(ef_spatial=32, ef_attribute=64, max_edges_if=32, max_edges_is=32,
+                    iterations=3, repair_width=16, exact_spatial=N_FAMILY_DOCS <= 4096)
+    idx = UGIndex.build(x, ints, ucfg, device=dev)
+    c = torch.rand((N_FAMILY_QUERIES, 1), generator=g, device=dev)
+    wide = torch.cat([(c - 0.3).clamp_min(0.0), (c + 0.3).clamp_max(1.0)], dim=1)
+    sems = [[Semantics.IF, Semantics.IS, Semantics.RS, Semantics.RF][i % 4]
+            for i in range(N_FAMILY_QUERIES)]
+    is_rs = torch.tensor([s is Semantics.RS for s in sems], device=dev)
+    qi = torch.where(is_rs[:, None], torch.cat([c, c], dim=1), wide)
+    idx.search_mixed(qv, qi, sems, **SEARCH)                # warm-up
+    seconds = []
+    for _ in range(3):
+        res, s = timed(lambda: idx.search_mixed(qv, qi, sems, **SEARCH))
+        seconds.append(s)
+    launches = {name: ops.launches.get(name, 0) for name in FAMILY_KERNELS}   # (e) ends here
+    med = statistics.median(seconds)
+    recalls = recall_per_semantics(res, scored_queries(idx, qv, qi, sems))
+    check_builds = {b: UGIndex.build(x[:N_FAMILY_CHECK], ints[:N_FAMILY_CHECK],
+                                     dataclasses.replace(ucfg, prune_backend=b), device=dev)
+                    for b in ("cuda", "torch")}
+    check(bits_equal(check_builds["cuda"].graph.nbrs, check_builds["torch"].graph.nbrs)
+          and bits_equal(check_builds["cuda"].graph.status, check_builds["torch"].graph.status),
+          f"12e: the d = {x.shape[1]} build: prune_backend='cuda' != 'torch'")
+    search_checks(check_builds["cuda"], (qv, qi, sems), dev, "12e")
+    emit(phase=12, part="e", card=smi, arch=INDEX_ARCH, n=N_FAMILY_DOCS, d=x.shape[1],
+         queries=N_FAMILY_QUERIES, build_seconds=idx.build_seconds,
+         degree_stats=idx.degree_stats(), search_seconds=seconds, qps=N_FAMILY_QUERIES / med,
+         qps_min=N_FAMILY_QUERIES / max(seconds), qps_max=N_FAMILY_QUERIES / min(seconds),
+         iters=res.iters, mean_steps=float(res.steps.float().mean()), recall_at_10=recalls,
+         mean_recall_at_10=mean(recalls.values()), launches=launches,
+         check_rows=N_FAMILY_CHECK,
+         check_builds_seconds={b: i.build_seconds for b, i in check_builds.items()},
+         checks=dict(build_bitwise=True, search_bitwise=True, mixed_equals_per_semantics=True))
+    check(mean(recalls.values()) >= 0.02,
+          f"12e: mean recall@10 {recalls} < 0.02 over {INDEX_ARCH}'s embeddings")
+    for name in FAMILY_KERNELS:
+        check(launches[name] > 0, f"{name} was not launched on phase 12's path")
+    del idx, check_builds, res, qv, qi, x, kept
+    torch.cuda.empty_cache()
+
+    # (f) the serve CLI at full width in a subprocess on the card
+    for arch in FAMILY_CLI_ARCHS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+               "--no-reduced", "--docs", "2000", "--queries", "64", "--mixed"]
+        proc, cli_s = timed(lambda: subprocess.run(
+            cmd, cwd=ROOT, capture_output=True, text=True, timeout=TOWER_CLI_TIMEOUT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src"))))
+        emit(phase=12, part="f", card=smi, command=" ".join(cmd[1:]),
+             returncode=proc.returncode, seconds=cli_s, lines=proc.stdout.splitlines())
+        check(proc.returncode == 0, f"12f: the serve CLI for {arch} failed:\n"
+                                    f"{proc.stderr[-4000:]}")
+    return launches
+
+
 def result_on_cpu(res):
     """A card result's tensors on the CPU."""
     from repro_torch.core import SearchResult
@@ -1994,21 +2457,31 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
-    smi = phase0_card()
+    phase_seconds = {}
+
+    def run(phase: int, fn, *args):
+        """``fn(*args)``, its seconds kept under ``phase``."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_seconds[phase] = time.perf_counter() - t0
+        return out
+
+    smi = run(0, phase0_card)
     dev = torch.device("cuda")
-    phase1_build()
-    rows = phase2_kernels(dev)
-    main_path = phase3_main_path(dev)
-    check50 = phase4_checks(dev, main_path)
-    path_launches = phase5_planes(dev, main_path, check50)
+    run(1, phase1_build)
+    rows = run(2, phase2_kernels, dev)
+    main_path = run(3, phase3_main_path, dev)
+    check50 = run(4, phase4_checks, dev, main_path)
+    path_launches = run(5, phase5_planes, dev, main_path, check50)
     path_launches["f32"] = main_path["launches"]
-    scan_rows, path_launches["bench"] = phase6_bench(dev, main_path)
+    scan_rows, path_launches["bench"] = run(6, phase6_bench, dev, main_path)
     rows.update(scan_rows)
-    update_launches = phase7_updates(dev, main_path, check50, smi)
-    serve_launches = phase8_serve(dev, main_path, smi)
-    shard_launches = phase9_sharded(dev, main_path, check50, smi)
-    legacy_launches = phase10_legacy_bench(dev, main_path, smi)
-    tower_launches = phase11_towers(dev, smi)
+    update_launches = run(7, phase7_updates, dev, main_path, check50, smi)
+    serve_launches = run(8, phase8_serve, dev, main_path, smi)
+    shard_launches = run(9, phase9_sharded, dev, main_path, check50, smi)
+    legacy_launches = run(10, phase10_legacy_bench, dev, main_path, smi)
+    tower_launches = run(11, phase11_towers, dev, smi)
+    family_launches = run(12, phase12_families, dev, smi)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -2026,10 +2499,13 @@ def main() -> int:
             **({"launches_sharded": shard_launches[name]} if name in SHARD_KERNELS else {}),
             **({"launches_legacy_bench": legacy_launches[name]}
                if name in LEGACY_BENCH_KERNELS else {}),
-            **({"launches_towers": tower_launches[name]} if name in TOWER_KERNELS else {})))
+            **({"launches_towers": tower_launches[name]} if name in TOWER_KERNELS else {}),
+            **({"launches_families": family_launches[name]}
+               if name in FAMILY_KERNELS else {})))
     left = children_left()
     check(not left, f"processes this run started are still running: {left}")
-    emit(seconds=time.perf_counter() - t_start, card=smi, children_left=len(left))
+    emit(seconds=time.perf_counter() - t_start, phase_seconds=phase_seconds, card=smi,
+         children_left=len(left))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,7 @@ import importlib
 
 import torch
 
-from repro_torch.models.common import SLICE_FAMILIES, ModelConfig
+from repro_torch.models.common import ModelConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,13 +134,27 @@ def input_specs(
 def decode_state_specs(cfg: ModelConfig, B: int, S: int, *, concrete: bool = False,
                        device=None):
     """Decode-state tree: ``meta`` tensors by default, zeros on ``device``
-    (``None`` = the card) if concrete.  The decoder family is ported."""
-    from repro_torch.models import transformer
+    (``None`` = the card) if concrete."""
+    from repro_torch.models import encdec, rwkv_model, transformer, zamba
 
-    if cfg.family != "decoder":
-        raise NotImplementedError(f"the {cfg.family} family's decode state is not ported yet "
-                                  f"({SLICE_FAMILIES})")
-    return transformer.init_cache(cfg, B, S, device=_device(concrete, device))
+    dev = _device(concrete, device)
+    if cfg.family == "decoder":
+        return transformer.init_cache(cfg, B, S, device=dev)
+    if cfg.family == "rwkv6":
+        return rwkv_model.init_state(cfg, B, S, device=dev)
+    if cfg.family == "zamba2":
+        return zamba.init_state(cfg, B, S, device=dev)
+    if cfg.family == "encdec":
+        # self-attn cache at S plus precomputed cross-attn KV over S//8 frames
+        kv_shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.hd)
+        x_shape = (cfg.n_layers, B, max(S // 8, 1), cfg.n_kv_heads, cfg.hd)
+
+        def z(shape):
+            return torch.zeros(shape, dtype=cfg.dtype, device=dev)
+
+        return encdec.EncDecState((z(kv_shape), z(kv_shape)), (z(x_shape), z(x_shape)),
+                                  torch.zeros((B,), dtype=torch.int32, device=dev))
+    raise ValueError(cfg.family)
 
 
 def _device(concrete: bool, device):

@@ -1,7 +1,8 @@
 """Interval-aware retrieval serving (the paper's deployment), on the card.
 
-Pipeline: an LM tower (``--arch``, reduced unless ``--no-reduced``) embeds
-a corpus of random-token documents → the UG unified index over (embedding,
+Pipeline: an LM tower (``--arch``, reduced unless ``--no-reduced``; the
+decoder family, dense and MoE, rwkv6 and zamba2 serve) embeds a corpus of
+random-token documents → the UG unified index over (embedding,
 validity-interval) pairs → batched queries, embedded by the same tower,
 under all four semantics (IF / IS / RS / RF) against brute-force truth;
 then, on request, one interleaved mixed stream (``--mixed``), a 10 % churn
@@ -14,8 +15,13 @@ Example::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --docs 300 \\
         --queries 16 --mixed --dynamic --async
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b --no-reduced \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b --device cpu \\
+        --docs 300 --queries 16 --mixed
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --no-reduced \\
         --docs 2000 --queries 64 --mixed          # on the card
+
+The encdec tower (seamless-m4t-medium) has no token-only forward, so, as
+in the reference, its run stops at the embed step with an error.
 """
 from __future__ import annotations
 
@@ -98,6 +104,9 @@ def main(argv=None) -> int:
     no_tf32()
     spec = get_arch(args.arch)
     cfg = spec.reduced if args.reduced else spec.config
+    if cfg.family == "encdec":
+        print(f"[serve] encdec tower: {cfg.name}'s decoder needs the encoder's frames; "
+              f"embedding tokens alone fails as in the reference")
     model = get_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     engine = ServeEngine(model, params)

@@ -1,5 +1,4 @@
-"""Model zoo: the assigned architectures as one configurable family set;
-the decoder family's dense configs are ported."""
+"""Model zoo: the 10 assigned architectures as one configurable family set."""
 from repro_torch.models.api import Model, get_model
 from repro_torch.models.common import ModelConfig, init_params, params_from_numpy
 

@@ -23,7 +23,6 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-SLICE_FAMILIES = "ROADMAP.md queue 1, item 9, slice 2"   # MoE, rwkv6, zamba2, encdec
 SLICE_TRAINING = "ROADMAP.md queue 1, item 9, slice 3"   # losses, train/, shardings
 
 
@@ -95,9 +94,15 @@ class ModelConfig:
         return sum(t.numel() for _, t in tree_leaves(init_params(self, mode="shape")))
 
     def active_param_count(self) -> int:
-        """Active-per-token N: == N for dense (MoE's top-k share of the
-        experts comes with its blocks, item 9, slice 2)."""
-        return self.param_count()
+        """Active-per-token N for MoE: the leaves under an ``experts`` key
+        count at ``top_k / n_experts``; == N for dense."""
+        if not self.moe:
+            return self.param_count()
+        leaves = tree_leaves(init_params(self, mode="shape"))
+        total = sum(t.numel() for _, t in leaves)
+        expert_leaves = sum(t.numel() for path, t in leaves if "experts" in path)
+        active_frac = self.top_k / max(self.n_experts, 1)
+        return int(total - expert_leaves + expert_leaves * active_frac)
 
 
 def tree_leaves(tree, path: tuple = ()) -> list[tuple[tuple, Any]]:
@@ -150,13 +155,18 @@ class ParamBuilder:
 
 
 def init_params(cfg: ModelConfig, mode: str = "init", generator: torch.Generator | None = None):
-    """The family's parameter tree; the decoder family is ported."""
-    from repro_torch.models import transformer
+    """Dispatch to the family-specific parameter builder."""
+    from repro_torch.models import encdec, ssm, transformer, zamba
 
+    b = ParamBuilder(cfg, mode, generator)
     if cfg.family == "decoder":
-        return transformer.build_params(cfg, ParamBuilder(cfg, mode, generator))
-    if cfg.family in ("encdec", "rwkv6", "zamba2"):
-        raise NotImplementedError(f"the {cfg.family} family is not ported yet ({SLICE_FAMILIES})")
+        return transformer.build_params(cfg, b)
+    if cfg.family == "encdec":
+        return encdec.build_params(cfg, b)
+    if cfg.family == "rwkv6":
+        return ssm.build_rwkv6_params(cfg, b)
+    if cfg.family == "zamba2":
+        return zamba.build_params(cfg, b)
     raise ValueError(f"unknown family {cfg.family}")
 
 

@@ -1,0 +1,154 @@
+"""Encoder-decoder transformer (seamless-m4t backbone).
+
+The audio frontend is a stub, as in the reference: the encoder takes
+precomputed frame embeddings (B, S_enc, d_model).  The decoder is a causal
+stack with cross-attention whose K/V come from the encoder output (made
+once, by ``init_state`` for decoding; decode never grows them).  The
+cross-attention queries are roped at the decoder's positions, its keys at
+the encoder's.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models.common import ModelConfig, rms_norm, rope, swiglu
+from repro_torch.models.transformer import _stack, layer, unembed
+
+
+def _ffn_params(cfg, b, L, lax_):
+    return {
+        "w_gate": b(L + (cfg.d_model, cfg.d_ff), lax_ + ("embed", "mlp")),
+        "w_up": b(L + (cfg.d_model, cfg.d_ff), lax_ + ("embed", "mlp")),
+        "w_down": b(L + (cfg.d_ff, cfg.d_model), lax_ + ("mlp", "embed")),
+    }
+
+
+def build_params(cfg: ModelConfig, b):
+    enc_l = cfg.enc_layers or cfg.n_layers
+    Le, Ld = (enc_l,), (cfg.n_layers,)
+    lax_ = ("layers",)
+    enc = {
+        "ln1": b(Le + (cfg.d_model,), lax_ + ("embed",), init="ones"),
+        "attn": attn.build_gqa_params(dataclasses.replace(cfg, n_layers=enc_l), b),
+        "ln2": b(Le + (cfg.d_model,), lax_ + ("embed",), init="ones"),
+        "mlp": _ffn_params(cfg, b, Le, lax_),
+    }
+    dec = {
+        "ln1": b(Ld + (cfg.d_model,), lax_ + ("embed",), init="ones"),
+        "self_attn": attn.build_gqa_params(cfg, b),
+        "ln_x": b(Ld + (cfg.d_model,), lax_ + ("embed",), init="ones"),
+        "cross_attn": attn.build_gqa_params(cfg, b),
+        "ln2": b(Ld + (cfg.d_model,), lax_ + ("embed",), init="ones"),
+        "mlp": _ffn_params(cfg, b, Ld, lax_),
+    }
+    return {
+        "frame_proj": b((cfg.d_model, cfg.d_model), ("embed", "mlp")),
+        "embed": b((cfg.vocab, cfg.d_model), ("vocab", "embed"), scale=0.02),
+        "encoder": enc,
+        "decoder": dec,
+        "ln_enc": b((cfg.d_model,), ("embed",), init="ones"),
+        "ln_f": b((cfg.d_model,), ("embed",), init="ones"),
+        "unembed": b((cfg.d_model, cfg.vocab), ("embed", "vocab")),
+    }
+
+
+def _ffn(p_l, h):
+    return swiglu(h, p_l["mlp"]["w_gate"], p_l["mlp"]["w_up"], p_l["mlp"]["w_down"])
+
+
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    B, S = x.shape[:2]
+    return torch.arange(S, device=x.device).expand(B, S)
+
+
+def encode(cfg: ModelConfig, params, frames):
+    """frames (B, S_enc, d_model) -> encoder output (B, S_enc, d_model);
+    non-causal self-attention."""
+    x = frames.to(cfg.dtype) @ params["frame_proj"]
+    positions = _positions(x)
+    for i in range(cfg.enc_layers or cfg.n_layers):
+        p_l = layer(params["encoder"], i)
+        h = rms_norm(x, p_l["ln1"], cfg.norm_eps)
+        a, _ = attn.gqa_attend(cfg, p_l["attn"], h, positions, causal=False)
+        x = x + a
+        x = x + _ffn(p_l, rms_norm(x, p_l["ln2"], cfg.norm_eps))
+    return rms_norm(x, params["ln_enc"], cfg.norm_eps)
+
+
+def _dec_block(cfg, p_l, x, positions, enc_kv, self_cache=None, cache_len=None):
+    h = rms_norm(x, p_l["ln1"], cfg.norm_eps)
+    if self_cache is None:
+        a, kv = attn.gqa_attend(cfg, p_l["self_attn"], h, positions, causal=True)
+    else:
+        a, kv = attn.gqa_attend(cfg, p_l["self_attn"], h, positions, cache=self_cache,
+                                cache_len=cache_len)
+    x = x + a
+    h = rms_norm(x, p_l["ln_x"], cfg.norm_eps)
+    ca, _ = attn.gqa_attend(cfg, p_l["cross_attn"], h, positions, causal=False, kv=enc_kv)
+    x = x + ca
+    x = x + _ffn(p_l, rms_norm(x, p_l["ln2"], cfg.norm_eps))
+    return x, kv
+
+
+def cross_kv(cfg: ModelConfig, params, enc_out):
+    """Every decoder layer's cross-attention (K, V) of the encoder output,
+    stacked (L, B, S_enc, KV, hd); K roped at the encoder's positions."""
+    positions = _positions(enc_out)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        p = layer(params["decoder"], i)["cross_attn"]
+        k = attn._heads(enc_out, p["wk"])
+        v = attn._heads(enc_out, p["wv"])
+        if cfg.qkv_bias:
+            k = k + p["bk"]
+            v = v + p["bv"]
+        if cfg.qk_norm:
+            k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        ks.append(rope(k, positions, cfg.rope_theta))
+        vs.append(v)
+    return torch.stack(ks), torch.stack(vs)
+
+
+def decode_train(cfg: ModelConfig, params, tokens, enc_out):
+    x = params["embed"][tokens.long()]
+    positions = _positions(x)
+    enc_kvs = cross_kv(cfg, params, enc_out)
+    for i in range(cfg.n_layers):
+        x = _dec_block(cfg, layer(params["decoder"], i), x, positions, layer(enc_kvs, i))[0]
+    return rms_norm(x, params["ln_f"], cfg.norm_eps)
+
+
+class EncDecState(NamedTuple):
+    self_cache: Any           # (k, v), each (L, B, max_len, KV, hd)
+    enc_kvs: Any              # (k, v), each (L, B, S_enc, KV, hd)
+    cache_len: torch.Tensor   # (B,)
+
+
+def init_state(cfg: ModelConfig, params, frames, batch: int, max_len: int) -> EncDecState:
+    """Encodes ``frames`` once and keeps the cross K/V; an empty self-attention
+    cache on the parameters' device."""
+    enc_out = encode(cfg, params, frames)
+    enc_kvs = cross_kv(cfg, params, enc_out)
+    dev = params["embed"].device
+    kv_shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    cache = (torch.zeros(kv_shape, dtype=cfg.dtype, device=dev),
+             torch.zeros(kv_shape, dtype=cfg.dtype, device=dev))
+    return EncDecState(cache, enc_kvs, torch.zeros((batch,), dtype=torch.int32, device=dev))
+
+
+def decode_step(cfg: ModelConfig, params, state: EncDecState, tokens):
+    x = params["embed"][tokens.long()]
+    positions = state.cache_len[:, None]
+    caches = []
+    for i in range(cfg.n_layers):
+        x, nc = _dec_block(cfg, layer(params["decoder"], i), x, positions,
+                           layer(state.enc_kvs, i), self_cache=layer(state.self_cache, i),
+                           cache_len=state.cache_len)
+        caches.append(nc)
+    h = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    logits = unembed(cfg, params, h)[:, 0]
+    return EncDecState(_stack(caches), state.enc_kvs, state.cache_len + 1), logits

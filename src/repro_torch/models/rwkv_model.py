@@ -1,0 +1,63 @@
+"""RWKV6 (Finch) full model: attention-free LM with O(1) decode state.
+
+The layers run one after another on slices ``p[i]`` of the stacked blocks.
+The decode path runs the same block with ``S = 1`` and the carried state
+(``chunked_linear_attention`` with chunk 1), as the reference's does.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels.util import resolve_device
+from repro_torch.models import ssm
+from repro_torch.models.common import ModelConfig, rms_norm
+from repro_torch.models.transformer import layer, unembed
+
+
+def forward(cfg: ModelConfig, params, tokens):
+    """Returns (hidden, 0.0, None): no aux loss, no cache."""
+    x = params["embed"][tokens.long()]
+    for i in range(cfg.n_layers):
+        x = ssm.rwkv6_block(cfg, layer(params["blocks"], i), x)[0]
+    return rms_norm(x, params["ln_out"], cfg.norm_eps), 0.0, None
+
+
+class RwkvState(NamedTuple):
+    wkv: torch.Tensor        # (L, B, H, hd, hd) float32
+    shift_a: torch.Tensor    # (L, B, 1, d)
+    shift_b: torch.Tensor    # (L, B, 1, d)
+    cache_len: torch.Tensor  # (B,) position counter (no KV growth — O(1) state)
+
+
+def init_state(cfg: ModelConfig, batch: int, max_len: int = 0, *, device=None) -> RwkvState:
+    """An empty decode state on ``device`` (``None`` = the card); ``max_len``
+    is taken and unused: the state does not grow."""
+    dev = resolve_device(device)
+    d = cfg.d_model
+    H, hd = ssm.rwkv6_heads(cfg)
+    L = cfg.n_layers
+    return RwkvState(
+        torch.zeros((L, batch, H, hd, hd), dtype=torch.float32, device=dev),
+        torch.zeros((L, batch, 1, d), dtype=cfg.dtype, device=dev),
+        torch.zeros((L, batch, 1, d), dtype=cfg.dtype, device=dev),
+        torch.zeros((batch,), dtype=torch.int32, device=dev),
+    )
+
+
+def decode_step(cfg: ModelConfig, params, state: RwkvState, tokens):
+    """One token through all layers; the recurrent state replaces any KV."""
+    x = params["embed"][tokens.long()]           # (B, 1, d)
+    wkv, sa, sb = [], [], []
+    for i in range(cfg.n_layers):
+        x, (nw, nsa, nsb) = ssm.rwkv6_block(
+            cfg, layer(params["blocks"], i), x,
+            state=(state.wkv[i], state.shift_a[i], state.shift_b[i]))
+        wkv.append(nw)
+        sa.append(nsa)
+        sb.append(nsb)
+    h = rms_norm(x, params["ln_out"], cfg.norm_eps)
+    logits = unembed(cfg, params, h)[:, 0]
+    return RwkvState(torch.stack(wkv), torch.stack(sa), torch.stack(sb),
+                     state.cache_len + 1), logits

@@ -1,10 +1,11 @@
-"""Decoder-only transformer LM, the dense path: GQA with qkv-bias or
-qk-norm, MLA, SwiGLU or plain GELU MLP, early-fusion embeddings.
+"""Decoder-only transformer LM covering 8 of the 10 assigned archs: GQA
+with qkv-bias or qk-norm, MLA, SwiGLU or plain GELU MLP, MoE (with
+llama4's interleaved dense/MoE super-layers), early-fusion embeddings.
 
 Layers are stacked (a leading ``n_layers`` axis on every block parameter,
 as the reference stacks them for its ``lax.scan``) and run one after
-another on slices ``p[i]``.  MoE blocks (``moe=True``) wait for ROADMAP.md
-queue 1, item 9, slice 2; the losses (``lm_loss``, ``loss_fn``) for slice 3.
+another on slices ``p[i]``.  The losses (``lm_loss``, ``loss_fn``) wait for
+ROADMAP.md queue 1, item 9, slice 3.
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.util import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models.common import SLICE_FAMILIES, ModelConfig, rms_norm, swiglu, tree_map
+from repro_torch.models import moe as moe_lib
+from repro_torch.models.common import ModelConfig, rms_norm, swiglu, tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -24,8 +26,6 @@ from repro_torch.models.common import SLICE_FAMILIES, ModelConfig, rms_norm, swi
 def _build_blocks(cfg: ModelConfig, b, n_layers: int, *, moe: bool, d_ff: int):
     import dataclasses
 
-    if moe:
-        raise NotImplementedError(f"MoE blocks are not ported yet ({SLICE_FAMILIES})")
     L = (n_layers,)
     lax_ = ("layers",)
     cfg_l = dataclasses.replace(cfg, n_layers=n_layers)
@@ -37,7 +37,9 @@ def _build_blocks(cfg: ModelConfig, b, n_layers: int, *, moe: bool, d_ff: int):
         blocks["attn"] = attn.build_mla_params(cfg_l, b)
     else:
         blocks["attn"] = attn.build_gqa_params(cfg_l, b)
-    if cfg.gated_mlp:
+    if moe:
+        blocks["moe"] = moe_lib.build_moe_params(cfg_l, b)
+    elif cfg.gated_mlp:
         blocks["mlp"] = {
             "w_gate": b(L + (cfg.d_model, d_ff), lax_ + ("embed", "mlp")),
             "w_up": b(L + (cfg.d_model, d_ff), lax_ + ("embed", "mlp")),
@@ -51,12 +53,29 @@ def _build_blocks(cfg: ModelConfig, b, n_layers: int, *, moe: bool, d_ff: int):
     return blocks
 
 
+def interleaved(cfg: ModelConfig) -> bool:
+    """llama4-style stacks: each super-layer is ``moe_every - 1`` dense
+    blocks (``dense_blocks``, at ``dense_d_ff``) followed by one MoE block
+    (``blocks``)."""
+    return cfg.moe and cfg.moe_every > 1
+
+
 def build_params(cfg: ModelConfig, b):
+    if interleaved(cfg):
+        n_super = cfg.n_layers // cfg.moe_every
+        blocks = _build_blocks(cfg, b, n_super, moe=True, d_ff=cfg.d_ff)
+        dense = _build_blocks(cfg, b, n_super * (cfg.moe_every - 1), moe=False,
+                              d_ff=cfg.dense_d_ff or cfg.d_ff)
+    else:
+        blocks = _build_blocks(cfg, b, cfg.n_layers, moe=cfg.moe, d_ff=cfg.d_ff)
+        dense = None
     params = {
         "embed": b((cfg.vocab, cfg.d_model), ("vocab", "embed"), scale=0.02),
-        "blocks": _build_blocks(cfg, b, cfg.n_layers, moe=cfg.moe, d_ff=cfg.d_ff),
+        "blocks": blocks,
         "ln_f": b((cfg.d_model,), ("embed",), init="ones"),
     }
+    if dense is not None:
+        params["dense_blocks"] = dense
     if not cfg.tie_embeddings:
         params["unembed"] = b((cfg.d_model, cfg.vocab), ("embed", "vocab"))
     return params
@@ -78,6 +97,10 @@ def _stack(per_layer: list):
 # Blocks
 # ---------------------------------------------------------------------------
 def _ffn(cfg: ModelConfig, p_l, h):
+    # dispatch on the block's own parameters: interleaved configs mix dense
+    # and MoE blocks under one cfg
+    if "moe" in p_l:
+        return moe_lib.moe_ffn(cfg, p_l["moe"], h)
     mlp = p_l["mlp"]
     if "w_gate" not in mlp:
         # jax.nn.gelu's default is the tanh approximation
@@ -115,9 +138,18 @@ def block_decode(cfg: ModelConfig, p_l, x, positions, cache_l, cache_len):
 # ---------------------------------------------------------------------------
 # Stacks
 # ---------------------------------------------------------------------------
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.moe:
-        raise NotImplementedError(f"MoE blocks are not ported yet ({SLICE_FAMILIES})")
+def layer_order(cfg: ModelConfig, params) -> list:
+    """Each layer's parameters in the order the layers run: for interleaved
+    configs, super-layer by super-layer, its dense blocks then its MoE
+    block (the order the caches are stacked in, ``(L, ...)``)."""
+    if not interleaved(cfg):
+        return [layer(params["blocks"], i) for i in range(cfg.n_layers)]
+    me = cfg.moe_every
+    order = []
+    for s in range(cfg.n_layers // me):
+        order += [layer(params["dense_blocks"], s * (me - 1) + i) for i in range(me - 1)]
+        order.append(layer(params["blocks"], s))
+    return order
 
 
 def embed_tokens(cfg: ModelConfig, params, tokens, embeds=None):
@@ -129,15 +161,15 @@ def embed_tokens(cfg: ModelConfig, params, tokens, embeds=None):
 
 
 def forward(cfg: ModelConfig, params, tokens, *, embeds=None, collect_cache=False):
-    """Full causal forward.  Returns (hidden, aux, caches|None)."""
-    _dense_only(cfg)
+    """Full causal forward.  Returns (hidden, aux, caches|None); ``aux`` is
+    the MoE blocks' router loss summed over layers (0.0 without MoE)."""
     x = embed_tokens(cfg, params, tokens, embeds)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     aux = 0.0
     caches = []
-    for i in range(cfg.n_layers):
-        x, a, kv = block_train(cfg, layer(params["blocks"], i), x, positions)
+    for p_l in layer_order(cfg, params):
+        x, a, kv = block_train(cfg, p_l, x, positions)
         aux = aux + a
         if collect_cache:
             caches.append(kv)
@@ -160,7 +192,6 @@ class DecodeState(NamedTuple):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *, device=None):
     """An empty decode cache on ``device`` (``None`` = the card)."""
-    _dense_only(cfg)
     dev = resolve_device(device)
     dtype = dtype or cfg.dtype
     L = cfg.n_layers
@@ -182,13 +213,11 @@ def prefill(cfg: ModelConfig, params, tokens, *, embeds=None):
 
 def decode_step(cfg: ModelConfig, params, state: DecodeState, tokens):
     """One decode step for the whole batch: tokens (B, 1) -> logits (B, V)."""
-    _dense_only(cfg)
     x = embed_tokens(cfg, params, tokens)
     positions = state.cache_len[:, None]
     caches = []
-    for i in range(cfg.n_layers):
-        x, _, nc = block_decode(cfg, layer(params["blocks"], i), x, positions,
-                                layer(state.cache, i), state.cache_len)
+    for i, p_l in enumerate(layer_order(cfg, params)):
+        x, _, nc = block_decode(cfg, p_l, x, positions, layer(state.cache, i), state.cache_len)
         caches.append(nc)
     h = rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = unembed(cfg, params, h)[:, 0]

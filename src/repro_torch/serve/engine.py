@@ -4,7 +4,10 @@ streaming updates on an attached :class:`~repro_torch.core.index.UGIndex`.
 ``embed`` mean-pools a tower's final hidden states and L2-normalises them:
 the vectors the paper's unified interval-aware index is built over (the
 retrieval deployment in ``launch/serve.py``: embed → UG search under
-IF/IS/RF/RS).  ``generate`` decodes greedily or by sampling.
+IF/IS/RF/RS).  ``generate`` decodes greedily or by sampling.  Both serve
+every family with a token-only ``Model.forward``: the decoder (dense and
+MoE), rwkv6 and zamba2; for encdec, whose decoder needs the encoder's
+frames, both raise ``ValueError``, as the reference's calls fail there.
 ``attach_index`` + ``retrieve`` run interval-aware top-k on the attached
 index, embedding token batches unless vectors are given (``q_v=``).
 ``retrieve_mixed`` is the production mixed-workload path: each request of
@@ -227,7 +230,8 @@ class ServeEngine:
         """(B, S) tokens -> (B, d) float32 embeddings on the parameters'
         device: the mask-weighted mean of the final hidden states (``mask``
         defaults to all ones), L2-normalised in float32 with the norm held
-        at least 1e-6."""
+        at least 1e-6.  Raises ``ValueError`` for the encdec family (no
+        token-only forward)."""
         model = self._tower()
         dev = self.params["embed"].device
         tokens = as_tensor(tokens, torch.int64, dev)
@@ -248,7 +252,8 @@ class ServeEngine:
         int32.  The prompt is fed token by token through the decode path;
         only the last prompt step's logits are kept.  Sampling draws from a
         ``torch.Generator`` seeded with ``seed`` (the port's own draws, not
-        the reference's)."""
+        the reference's).  Raises ``ValueError`` for the encdec family (its
+        decode state needs the encoder's frames)."""
         model = self._tower()
         dev = self.params["embed"].device
         prompts = as_tensor(prompts, torch.int32, dev)

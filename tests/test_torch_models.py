@@ -17,8 +17,10 @@ its own ``Model.init`` and are carried across with ``params_from_numpy``.
 * Full-width parameter counts over ``meta`` tensors against the
   reference's shape-mode count (nothing allocated) and the known numbers.
 * The registry: the same archs, shapes and skips; ``input_specs`` of the
-  same shapes and dtypes; non-dense families and ``loss`` raise
-  ``NotImplementedError`` naming their ROADMAP slice.
+  same shapes and dtypes.  The other families (MoE, rwkv6, zamba2,
+  encdec; their parity is in ``test_torch_moe.py`` and
+  ``test_torch_recurrent.py``) init and run, and ``loss`` raises
+  ``NotImplementedError`` naming its ROADMAP slice for all ten archs.
 """
 import jax
 import numpy as np
@@ -256,13 +258,23 @@ def test_input_specs_match_reference(arch):
 
 @pytest.mark.parametrize("arch", OTHER)
 def test_other_families_raise_naming_their_slice(arch):
+    """The families ported after the dense towers init and run (encdec
+    through ``prefill``, with frames); only ``loss`` still raises."""
     cfg = registry.get_arch(arch).reduced
     model = get_model(cfg)
-    with pytest.raises(NotImplementedError, match="item 9, slice 2"):
-        model.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="item 9, slice 2"):
-        model.forward({}, torch.zeros((1, 4), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="item 9, slice 2"):
-        model.init_decode_state({}, 1, 4)
+    params = model.init(torch.Generator().manual_seed(0))
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    if cfg.family == "encdec":
+        hidden, _ = model.prefill(params, {"tokens": toks,
+                                           "frames": torch.zeros((1, 3, cfg.d_model))})
+    else:
+        hidden = model.forward(params, toks)[0]
+    assert hidden.shape == (1, 4, cfg.d_model) and bool(torch.isfinite(hidden).all())
     with pytest.raises(NotImplementedError, match="item 9, slice 3"):
-        model.loss({}, {})
+        model.loss(params, {})
+
+
+@pytest.mark.parametrize("arch", registry.list_archs())
+def test_loss_raises_naming_slice_3(arch):
+    with pytest.raises(NotImplementedError, match="item 9, slice 3"):
+        get_model(registry.get_arch(arch).reduced).loss({}, {})

@@ -8,6 +8,9 @@
 * **snapshot consistency**: a query admitted before a write answers the
   pre-write snapshot, one admitted after the post-write one, and no write
   touches a tensor of the snapshot it replaced;
+* **failed writes**: a write that raises answers its future with the
+  error and leaves the index as it was, and the next write applies to
+  that index;
 * **deadlines**: expired requests are answered with ``DeadlineExceeded``
   (at admission or at dequeue), never dropped, and counted as rejected;
 * **backpressure**: admission past ``max_queue`` raises ``QueueFull``;
@@ -267,6 +270,38 @@ def test_pre_write_snapshot_tensors_unchanged():
                                                          dist1.view(np.int32))
 
 
+@pytest.mark.parametrize("threaded", [False, True], ids=["inline", "threaded"])
+def test_failed_write_leaves_the_index_and_the_next_write_applies_to_it(threaded, monkeypatch):
+    """A remove that raises answers its future with the error and changes
+    no snapshot; the upsert admitted after it applies to the index before
+    it, and the queries after both pin that upsert's index."""
+    def failing(self, ids, *, repair=True):
+        raise RuntimeError("remove failed")
+    monkeypatch.setattr(ServeEngine, "remove", failing)
+    dead = np.arange(0, 40, 2, dtype=np.int32)
+    xnew = np.random.default_rng(7).normal(size=(20, D)).astype(np.float32)
+    inew = np.sort(np.random.default_rng(8).uniform(size=(20, 2)), 1).astype(np.float32)
+    eng = make_engine()
+    old = eng.index
+    qv, qi, flags = make_queries(4)
+    rt = ServeRuntime(eng, RuntimeConfig(max_batch=4))
+    if threaded:
+        rt.start()
+    bad, good = rt.submit_remove(dead), rt.submit_upsert(xnew, inew)
+    post = [rt.submit(qv[i], qi[i], flags[i]) for i in range(4)]
+    if threaded:
+        rt.stop()
+    else:
+        rt.run_until_idle()
+    with pytest.raises(RuntimeError, match="remove failed"):
+        bad.result(timeout=5)
+    assert good.result(timeout=5) == len(xnew)
+    assert eng.index.n == old.n + len(xnew) and rt.stats()["writes"] == 1
+    ids, dist = direct_rows(eng.index, qv, qi, flags)
+    for i, f in enumerate(post):
+        assert f.result(timeout=5).index is eng.index and same(f.result(), ids[i], dist[i])
+
+
 def test_engine_holds_the_attached_store_by_reference():
     idx = small_index()
     eng = ServeEngine()
@@ -514,12 +549,13 @@ def test_serve_and_updates_tables_emit_reference_rows(monkeypatch):
 
     monkeypatch.setattr(common, "TIMED_CALLS", (0, 1))   # the rows matter here, not the times
     b = common.Bench(n=300, dim=D, nq=8, device="cpu", cfg=CFG)
-    serve = tables.bench_serve(b, nreq=32, batch=8)
+    serve = tables.bench_serve(b, nreq=32, batch=8, timed_seconds=0.0)   # one round
     assert [r["name"] for r in serve] == ["serve_sync_batched", "serve_async_runtime",
                                           "serve_consistency"]
     cons = serve[2]["metrics"]
     assert cons["recall_vs_pinned_snapshot"] == cons["recall_async_eq_sync"] == 1.0
     assert serve[1]["metrics"]["writes"] == 2 and serve[1]["metrics"]["rejected"] == 0
+    assert serve[1]["metrics"]["rounds"] == 1
     updates = tables.bench_updates(b, require_recall_gap=1.0)
     assert [r["name"] for r in updates] == [
         "updates_profile_legacy", "updates_profile_torch", "updates_delete_batch",
