@@ -219,6 +219,58 @@ the script exits non-zero without printing a result):
    --arch A --no-reduced --docs 2000 --queries 64 --mixed`` in a subprocess
    on the card for rwkv6-1.6b and zamba2-2.7b: exit 0, its lines printed.
 
+13. training on the card (``train/``, the four families' losses with
+   remat, ``data``'s LM batches, ``launch/train``, ``bench_lm_steps``), in
+   PyTorch's deterministic mode (``train/step.py::deterministic``; the
+   backward's float scatter-adds would otherwise be atomics): (a) the ten
+   reduced archs (float32, TF32 off) with the same weights and
+   ``lm_batch`` (B = 2, S = 32; encoder frames for encdec) on the card and
+   on the CPU: ``Model.loss``, ``ce`` and ``aux`` within 1e-4 relative,
+   every gradient leaf within 1e-4 of that leaf's largest CPU magnitude,
+   and the parameters after one ``make_train_step`` within 1e-5 under
+   ``AdamWConfig(eps=1e-3)`` (Adam's first step is ``lr · sign(g)`` where
+   ``|g| ≫ eps``, so a near-zero gradient whose sign differs by rounding
+   moves its parameter by 2·lr; eps = 1e-3 makes the update smooth in
+   ``g``), the MoE archs' expert choices equal and their smallest top-k
+   margin printed; RWKV6's decay base and LoRA drawn as N(−1, 0.5²) and
+   N(0, 0.1²) (``TRAIN_DECAY``: with the forward phases' N(0, 4²) base the
+   gradient through the log decay is float32 noise, see
+   ``tests/test_torch_grads_recurrent.py``); (b) two 6-step runs of
+   reduced qwen1.5-4b, qwen3-moe, rwkv6 and zamba2 bitwise equal; the CLI
+   drill in subprocesses: ``launch.train --arch qwen3-moe-235b-a22b
+   --reduced --steps 6 --ckpt-every 3 --batch 4 --seq 32 --ckpt-dir D1``,
+   its final checkpoint moved to ``D2`` (what is left is a run preempted
+   after step 3 of a 6-step schedule), then the same with ``--resume``,
+   which must print ``resumed at step 3``, its final checkpoint's array
+   files byte for byte those of the straight run in ``D2`` (and the same
+   keys and cursor); microbatches 2
+   against 1 on reduced qwen1.5-4b within the reference's 2e-5 (eps rule);
+   reduced qwen1.5-4b 30 steps on one fixed batch from the CPU's weights,
+   its last loss below ``LEARN_BAR`` (set from a CPU run, printed);
+   (c) qwen1.5-4b whole at full width (bf16 from a seeded generator,
+   float32 moments), B = 4, S = 512, 8 donated steps with ``launch/train``'s
+   schedule: each step's loss, grad norm, lr and ms, tokens/s, peak memory,
+   and model TFLOP/s (6 × its 3,561,413,120 parameters outside the embed
+   lookup × tokens/s; remat runs each block's forward twice) beside the
+   989 TFLOP/s bf16 peak; the cut and its memory arithmetic printed
+   (``TRAIN_CUTS``); every loss and grad norm finite, the parameters
+   changed; (f), run next while (c)'s parameters are on the card: the
+   trained tower's ``ServeEngine.embed`` of 4,096 documents × 32 tokens
+   (finite, unit norm within 1e-5), ``UGIndex.build`` with the serve CLI's
+   ``UGConfig``, ``prune_backend`` cuda bitwise torch, a mixed search of
+   1,000 embedded queries at ef 64, k 10, W 4: QPS, iterations, recall@10
+   per semantics against ``brute_force`` (tripwire: mean ≥ 0.02), and the
+   launches of ``expand_score``, ``beam_merge`` and ``prune_sweep`` over
+   the build and the searches, counted from 0, each above 0
+   (``launches_training`` in the kernels line); (d) rwkv6-1.6b whole, 4
+   steps at B = 4, S = 512 (4 chunks of 128), the same prints and checks;
+   (e) qwen3-moe-235b-a22b at full width with 1 layer (~3.73 B parameters
+   at 12 bytes each, 44.8 GB, plus a 3.2 GB float32 init temporary; two
+   layers would take ~75 GB), 2 steps at B = 2, S = 256, the same, and
+   the dropped assignments of each router call; (g) ``python -m
+   repro_torch.bench.run --only lm_steps`` in a subprocess on the card:
+   exit 0 and its three rows.
+
 Before the last lines the script checks that no process it started (the
 compiler, the spawned ranks, multiprocessing's resource tracker) is still
 running; the line before the kernels line gives the run's seconds and each
@@ -234,6 +286,10 @@ import pathlib
 import subprocess
 import sys
 import time
+
+# phase 13 trains in PyTorch's deterministic mode, whose cuBLAS needs this
+# workspace setting before the process's first product
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = pathlib.Path(__file__).resolve().parent
 N_MAIN = 1_000_000             # corpus rows of the main path (SIFT1M's size)
@@ -328,6 +384,47 @@ DECODE_TOL = {"bf16": {"rwkv6": (2 ** -5, 1.0), "zamba2": (2 ** -5, 1.0),
                        "encdec": (2 ** -5, 1.0)},
               "float32": {"rwkv6": (1e-3, 1e-3), "zamba2": (1e-3, 1e-3),
                           "encdec": (2 ** -5, 0.15)}}
+# phase 13: training on the card
+TRAIN_BATCH_REDUCED = (2, 32)  # (a): batch x tokens of the card == CPU check
+TRAIN_EPS_RULE = dict(lr=1e-3, eps=1e-3, warmup_steps=2, total_steps=8)   # (a), (b)
+# (a): |card - CPU| <= GRAD_TOL x the leaf's largest |CPU grad|, by kind of tower: the
+# rule tests/test_torch_grads_*.py hold the port to the reference with.  The MoE and
+# recurrent towers amplify float32 rounding (llama4's dense blocks attend near one-hot:
+# the card read 2.2e-4 there, the CPU's two packages differ by up to 5.2e-4)
+GRAD_TOL = {"dense": 1e-4, "moe_or_recurrent": 1e-3}
+DETERMINISM_ARCHS = ("qwen1.5-4b", "qwen3-moe-235b-a22b", "rwkv6-1.6b", "zamba2-2.7b")  # (b)
+DETERMINISM = dict(steps=6, batch=4, seq=32)                      # (b)
+CLI_DRILL = dict(arch="qwen3-moe-235b-a22b", steps=6, ckpt_every=3, batch=4, seq=32)  # (b)
+CLI_TIMEOUT = 300              # (b), (g): seconds a training subprocess may take
+LEARN = dict(arch="qwen1.5-4b", steps=30, batch=4, seq=32, seed=31)          # (b)
+# (b): the loss after LEARN's 30 steps must be below this bar.  A CPU run of the
+# port (same config, weights, batch and schedule) fell 6.9734 -> 3.9858; the bar
+# keeps 83 % of that drop, leaving room for the card's other summation order
+LEARN_BAR = 4.5
+# (c)-(e): arch -> (layers it is cut to, or None; batch; seq; steps)
+FULL_TRAIN = {
+    "qwen1.5-4b": (None, 4, 512, 8),
+    "rwkv6-1.6b": (None, 4, 512, 4),
+    "qwen3-moe-235b-a22b": (1, 2, 256, 2),
+}
+TRAIN_MODEL_PARAMS = 3_561_413_120   # (c): qwen1.5-4b's parameters outside the embed lookup
+TRAIN_CUTS = {
+    "qwen1.5-4b": (
+        "whole (40 layers) at B = 4, S = 512: 3,950,369,280 parameters; bf16 params 7.90 GB "
+        "+ grads 7.90 GB + float32 moments 31.6 GB = 47.4 GB; a step that is not donated "
+        "holds two copies of params and moments (~87 GB > 80 GB), so the step is donated; "
+        "remat keeps the block inputs (40 x 2,048 x 2,560 x 2 B = 0.42 GB); one logits chunk "
+        "(4 x 256 x 151,936 float32) 0.62 GB plus its gradient; the update's float32 "
+        "temporaries bounded by its 64 M-element slices; predicted peak ~53 GB"),
+    "rwkv6-1.6b": "whole (24 layers, d = 2048) at B = 4, S = 512 (4 chunks of 128)",
+    "qwen3-moe-235b-a22b": (
+        "n_layers 94 -> 1 at full width, B = 2, S = 256: a layer is ~2.488 B parameters "
+        "and embed/unembed ~1.245 B, ~3.73 B at 12 bytes each (bf16 params and grads, "
+        "float32 moments) = ~44.8 GB, plus the init's 3.2 GB float32 temporary of one "
+        "(1, 128, 4096, 1536) expert leaf; two layers would take ~75 GB"),
+}
+TRAIN_SERVE = dict(docs=4_096, queries=1_000)    # (f): the trained tower embeds and serves
+TRAIN_KERNELS = ("expand_score", "beam_merge", "prune_sweep")    # (f)'s path
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 PEAK_TF32_PER_S = 495e12       # H100 SXM TF32 on the tensor cores, dense
@@ -2055,17 +2152,25 @@ def phase11_towers(dev, smi) -> dict:
 ZERO_LEAVES = {"mu_r", "mu_k", "mu_v", "mu_w", "mu_g", "mu_ffn_k", "bonus", "decay_lora_b",
                "dt_bias", "a_log"}
 ONE_LEAVES = {"d_skip", "gn"}
+# RWKV6's decay for phase 13 (tests/torch_towers.py::TRAIN_DECAY): a log
+# decay of about -0.4 a step keeps a chunk's cumulative log well above the
+# -60 clamp, so the gradient through every decay leaf is held
+TRAIN_DECAY = {"decay_base": (-1.0, 0.5), "decay_lora_b": (0.0, 0.1)}
 
 
-def redraw_constant_leaves(params, generator):
+def redraw_constant_leaves(params, generator, draws=None):
     """``params`` with the leaves the init makes constant redrawn from
     ``generator`` (zeros as N(0, 0.5²), ones as 1 + N(0, 0.3²), the RWKV6
     decay base as N(0, 4²)), as the CPU tests redraw them with numpy: at
     the init's constants a dropped bonus, decay LoRA or token-shift mix
-    would not show."""
+    would not show.  ``draws`` maps a leaf name to the ``(mean, std)``
+    drawn in its place (phase 13: ``TRAIN_DECAY``)."""
     import torch
 
-    def draw(v, scale, shift=0.0):
+    draws = dict(draws or {})
+
+    def draw(k, v, scale, shift=0.0):
+        shift, scale = draws.get(k, (shift, scale))
         w = torch.randn(v.shape, generator=generator, device=v.device)
         return (shift + scale * w).to(v.dtype)
 
@@ -2076,11 +2181,11 @@ def redraw_constant_leaves(params, generator):
             if isinstance(v, dict):
                 v = walk(v)
             elif k in ZERO_LEAVES:
-                v = draw(v, 0.5)
+                v = draw(k, v, 0.5)
             elif k in ONE_LEAVES:
-                v = draw(v, 0.3, 1.0)
+                v = draw(k, v, 0.3, 1.0)
             elif k == "decay_base":
-                v = draw(v, 4.0)
+                v = draw(k, v, 4.0)
             out[k] = v
         return out
 
@@ -2100,9 +2205,10 @@ def recording_router():
 
     def router(cfg, xt, w):
         out = original(cfg, xt, w)
-        probs = torch.softmax(xt.float() @ w.float(), dim=-1)
-        top = probs.sort(dim=-1, descending=True).values
-        margin = float((top[:, cfg.top_k - 1] - top[:, cfg.top_k]).min())
+        with torch.no_grad():
+            probs = torch.softmax(xt.float() @ w.float(), dim=-1)
+            top = probs.sort(dim=-1, descending=True).values
+            margin = float((top[:, cfg.top_k - 1] - top[:, cfg.top_k]).min())
         calls.append((out[0].cpu(), margin))
         return out
 
@@ -2440,6 +2546,383 @@ def phase12_families(dev, smi) -> dict:
     return launches
 
 
+def tree_bits_equal(a, b) -> bool:
+    """Every leaf of two trees of nested dicts bitwise equal."""
+    from repro_torch.models.common import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(pa == pb and bits_equal(x, y)
+                                      for (pa, x), (pb, y) in zip(la, lb))
+
+
+def train_subprocess(args, timeout=CLI_TIMEOUT):
+    """``python -m repro_torch.launch.train ARGS`` started on the card."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *args], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+
+
+def finish(proc, what: str, timeout=CLI_TIMEOUT) -> str:
+    """The stdout of a subprocess that must exit 0 within ``timeout``."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"{what}: no exit within {timeout} s")
+    check(proc.returncode == 0, f"{what} failed ({proc.returncode}):\n{err[-4000:]}")
+    return out
+
+
+def same_checkpoint(a: pathlib.Path, b: pathlib.Path) -> bool:
+    """Two checkpoint steps with the same keys, cursor and array files, byte
+    for byte (the manifests' write times differ)."""
+    ma, mb = (json.loads((d / "manifest.json").read_text()) for d in (a, b))
+    if (ma["keys"], ma["data_cursor"], ma["step"]) != (mb["keys"], mb["data_cursor"], mb["step"]):
+        return False
+    return all((a / "arrays" / i["file"]).read_bytes() == (b / "arrays" / i["file"]).read_bytes()
+               for i in ma["keys"].values())
+
+
+def phase13_training(dev, smi) -> dict:
+    """Training on the card: the ten reduced archs' losses, gradients and
+    one step against the CPU; determinism, the CLI's resume and learning;
+    qwen1.5-4b, rwkv6-1.6b and one qwen3-moe layer at full width; the
+    trained tower's embeddings indexed and searched; the lm_steps bench.
+    Returns the launches of (f)."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_arch, list_archs
+    from repro_torch.data import LMDataConfig, lm_batch
+    from repro_torch.models import get_model
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.train import AdamWConfig, make_train_step, optim
+    from repro_torch.train.step import deterministic, value_and_grad
+
+    def frames_kw(cfg, seq):
+        return dict(frames_dim=cfg.d_model, frames_len=seq // 2) if cfg.family == "encdec" else {}
+
+    with deterministic(dev):
+        # (a) the ten reduced archs (float32, TF32 off), the same weights and
+        # batch on the card and on the CPU: loss, ce, aux, every gradient leaf,
+        # and the parameters after one make_train_step.  Adam's first step is
+        # lr * sign(g) where |g| >> eps, so a gradient element near zero whose
+        # sign differs by rounding moves its parameter by 2 lr: the step is
+        # held under AdamWConfig(eps=1e-3), where the update is smooth in g.
+        # RWKV6's decay leaves are drawn as TRAIN_DECAY: with the forward
+        # phases' N(0, 4^2) base the log decay reaches -exp(4) a step and the
+        # chunk form's gradient through it is float32 noise
+        # (tests/test_torch_grads_recurrent.py).
+        B, S = TRAIN_BATCH_REDUCED
+        reduced = {}
+        for arch in list_archs():
+            cfg = get_arch(arch).reduced
+            model = get_model(cfg)
+            host = redraw_constant_leaves(model.init(torch.Generator().manual_seed(41)),
+                                          torch.Generator().manual_seed(42),
+                                          draws=TRAIN_DECAY)
+            card = tree_map(lambda a: a.to(dev), host)
+            batch = lm_batch(LMDataConfig(cfg.vocab, B, S, seed=43), 0, device="cpu",
+                             **frames_kw(cfg, S))
+            out = {}
+            for where, params in (("cpu", host), ("card", card)):
+                with recording_router() as calls:
+                    loss, metrics, grads = value_and_grad(
+                        model, params, {k: v.to(params["embed"].device) for k, v in batch.items()})
+                out[where] = dict(loss=float(loss), ce=float(metrics["ce"]),
+                                  aux=float(metrics["aux"]), grads=grads, calls=calls)
+            c, g = out["cpu"], out["card"]
+            loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+            grad_err = {}
+            for (path, gc), (_, gg) in zip(tree_leaves(c["grads"]), tree_leaves(g["grads"])):
+                scale = float(gc.abs().max())
+                grad_err["/".join(path)] = (max_abs_err(gg.cpu(), gc) / scale) if scale else \
+                    max_abs_err(gg.cpu(), gc)
+            worst_leaf = max(grad_err, key=grad_err.get)
+            ocfg = AdamWConfig(**TRAIN_EPS_RULE)
+            step = make_train_step(model, ocfg, donate=False)
+            p_cpu, _, _ = step(host, optim.init(ocfg, host),
+                               {k: v for k, v in batch.items()})
+            p_card, _, _ = step(card, optim.init(ocfg, card),
+                                {k: v.to(dev) for k, v in batch.items()})
+            step_err = max(max_abs_err(b.cpu(), a) for (_, a), (_, b) in
+                           zip(tree_leaves(p_cpu), tree_leaves(p_card)))
+            rec = dict(loss_cpu=c["loss"], loss_card=g["loss"], loss_rel_err=loss_rel,
+                       ce_rel_err=abs(g["ce"] - c["ce"]) / abs(c["ce"]),
+                       aux_cpu=c["aux"], aux_card=g["aux"],
+                       max_grad_err_over_leaf_scale=grad_err[worst_leaf], worst_leaf=worst_leaf,
+                       max_param_err_after_step=step_err)
+            same_experts = True
+            if cfg.moe:
+                same_experts = len(c["calls"]) == len(g["calls"]) and all(
+                    torch.equal(a[0], b[0]) for a, b in zip(c["calls"], g["calls"]))
+                rec.update(same_expert_choices=same_experts,
+                           min_top_k_margin=min(m for _, m in c["calls"]))
+            kind = "dense" if cfg.family == "decoder" and not cfg.moe else "moe_or_recurrent"
+            rec["checks"] = dict(
+                loss=loss_rel <= 1e-4 and abs(g["aux"] - c["aux"]) <= 1e-4 * max(abs(c["aux"]),
+                                                                                1e-6),
+                grads=grad_err[worst_leaf] <= GRAD_TOL[kind], experts=same_experts,
+                step=step_err <= 1e-5)
+            reduced[arch] = rec
+        emit(phase=13, part="a", card=smi, batch=B, seq=S,
+             tolerance=dict(loss_rel=1e-4, grad={k: f"{v} x the leaf's largest |CPU grad|"
+                                                 for k, v in GRAD_TOL.items()},
+                            params_after_step="1e-5 under AdamWConfig(eps=1e-3)"),
+             reduced=reduced)
+        bad = {a: r for a, r in reduced.items() if not all(r["checks"].values())}
+        check(not bad, f"13a: on the card != on the CPU: {bad}")
+
+        # (b) determinism, restart and learning on the card, at reduced size
+        runs = {}
+        for arch in DETERMINISM_ARCHS:
+            cfg = get_arch(arch).reduced
+            model = get_model(cfg)
+            ocfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=DETERMINISM["steps"])
+            dcfg = LMDataConfig(cfg.vocab, DETERMINISM["batch"], DETERMINISM["seq"])
+            step = make_train_step(model, ocfg)
+            out = []
+            for _ in range(2):
+                params = model.init(torch.Generator(device=dev).manual_seed(0))
+                opt = optim.init(ocfg, params)
+                losses = []
+                for i in range(DETERMINISM["steps"]):
+                    params, opt, m = step(params, opt, lm_batch(dcfg, i, device=dev,
+                                                                **frames_kw(cfg, dcfg.seq)))
+                    losses.append(float(m["loss"]))
+                out.append((params, opt, losses))
+            (p1, o1, l1), (p2, o2, l2) = out
+            equal = tree_bits_equal(p1, p2) and tree_bits_equal(o1.m, o2.m) and \
+                tree_bits_equal(o1.v, o2.v) and l1 == l2
+            runs[arch] = dict(losses=l1, bitwise_equal=equal)
+            check(equal, f"13b: two {DETERMINISM['steps']}-step runs of {arch} differ")
+        drill_dir = ROOT / "build" / "train_drill"
+        shutil.rmtree(drill_dir, ignore_errors=True)
+        base = ["--arch", CLI_DRILL["arch"], "--reduced", "--steps", str(CLI_DRILL["steps"]),
+                "--ckpt-every", str(CLI_DRILL["ckpt_every"]),
+                "--batch", str(CLI_DRILL["batch"]), "--seq", str(CLI_DRILL["seq"]),
+                "--log-every", "1", "--ckpt-dir", str(drill_dir / "D1")]
+        final = f"step_{CLI_DRILL['steps']:09d}"
+        t0 = time.perf_counter()
+        lines = {"D1": finish(train_subprocess(base), "13b: the straight run")}
+        # the straight run's final checkpoint goes to D2; D1 keeps step 3 of 6
+        (drill_dir / "D2").mkdir()
+        shutil.move(drill_dir / "D1" / final, drill_dir / "D2" / final)
+        lines["D1 --resume"] = finish(train_subprocess(base + ["--resume"]),
+                                      "13b: the resumed run")
+        drill_s = time.perf_counter() - t0
+        resumed = f"resumed at step {CLI_DRILL['ckpt_every']}" in lines["D1 --resume"]
+        same = same_checkpoint(drill_dir / "D1" / final, drill_dir / "D2" / final)
+        shutil.rmtree(drill_dir, ignore_errors=True)
+        check(resumed, "13b: the resumed run did not print 'resumed at step "
+                       f"{CLI_DRILL['ckpt_every']}'")
+        check(same, "13b: the resumed run's final checkpoint != the straight run's")
+        # microbatches 2 against 1 (a dense config: an MoE layer's capacity
+        # depends on the call's tokens), the reference's 2e-5, the eps rule
+        cfg = get_arch("qwen1.5-4b").reduced
+        model = get_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(1))
+        batch = lm_batch(LMDataConfig(cfg.vocab, 4, 32), 0, device=dev)
+        ocfg = AdamWConfig(**TRAIN_EPS_RULE)
+        mb = [make_train_step(model, ocfg, microbatches=k, donate=False)(
+            params, optim.init(ocfg, params), batch)[0] for k in (1, 2)]
+        mb_err = max(max_abs_err(a, b) for (_, a), (_, b) in
+                     zip(tree_leaves(mb[0]), tree_leaves(mb[1])))
+        check(mb_err <= 2e-5, f"13b: microbatches 2 against 1 differ by {mb_err}")
+        # learning: LEARN's steps on one fixed batch from the CPU's weights
+        cfg = get_arch(LEARN["arch"]).reduced
+        model = get_model(cfg)
+        params = tree_map(lambda a: a.to(dev),
+                          model.init(torch.Generator().manual_seed(LEARN["seed"])))
+        ocfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=LEARN["steps"])
+        opt = optim.init(ocfg, params)
+        batch = lm_batch(LMDataConfig(cfg.vocab, LEARN["batch"], LEARN["seq"]), 0, device=dev)
+        step = make_train_step(model, ocfg)
+        learn = []
+        for _ in range(LEARN["steps"]):
+            params, opt, m = step(params, opt, batch)
+            learn.append(float(m["loss"]))
+        emit(phase=13, part="b", card=smi, determinism=runs,
+             cli_drill=dict(CLI_DRILL, seconds=drill_s, resumed_printed=resumed,
+                            final_checkpoint_equal=same, lines=lines),
+             microbatch_max_abs_err=mb_err, learn=dict(LEARN, losses=learn, bar=LEARN_BAR))
+        check(learn[-1] < LEARN_BAR,
+              f"13b: the loss after {LEARN['steps']} steps {learn[-1]} >= {LEARN_BAR}")
+        del params, opt, mb
+
+    # (c) qwen1.5-4b whole; (f), the trained tower serving, runs next, while
+    # (c)'s parameters are on the card; then (d) rwkv6-1.6b and (e) one
+    # qwen3-moe layer
+    model, params = train_full_width("qwen1.5-4b", dev, smi)
+    launches = _phase13_serve(dev, smi, model, params)
+    del model, params
+    for arch in ("rwkv6-1.6b", "qwen3-moe-235b-a22b"):
+        train_full_width(arch, dev, smi)
+    torch.cuda.empty_cache()
+
+    # (g) the lm_steps bench table in a subprocess on the card
+    cmd = [sys.executable, "-m", "repro_torch.bench.run", "--only", "lm_steps"]
+    proc, bench_s = timed(lambda: subprocess.run(
+        cmd, cwd=ROOT, capture_output=True, text=True, timeout=CLI_TIMEOUT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"))))
+    emit(phase=13, part="g", card=smi, command=" ".join(cmd[1:]), returncode=proc.returncode,
+         seconds=bench_s, lines=proc.stdout.splitlines())
+    check(proc.returncode == 0, f"13g: the lm_steps bench failed:\n{proc.stderr[-4000:]}")
+    check(sum(line.startswith("train_step_") for line in proc.stdout.splitlines()) == 3,
+          "13g: the lm_steps bench did not print its three rows")
+    return launches
+
+
+def train_full_width(arch, dev, smi):
+    """Phase 13 (c)-(e): ``arch`` at full width (cut per FULL_TRAIN), bf16
+    from a seeded generator, float32 moments, ``launch/train``'s schedule
+    for the steps run, donated steps in deterministic mode; each step's
+    loss, grad norm, lr and milliseconds, tokens/s, peak memory.  Returns
+    ``(model, params)`` after the steps (the caller frees them)."""
+    import dataclasses
+    import math
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import LMDataConfig, lm_batch
+    from repro_torch.models import get_model, moe
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train import AdamWConfig, make_train_step, optim
+    from repro_torch.train.step import deterministic
+
+    layers, B, S, steps = FULL_TRAIN[arch]
+    part = {"qwen1.5-4b": "c", "rwkv6-1.6b": "d", "qwen3-moe-235b-a22b": "e"}[arch]
+    cfg = get_arch(arch).config
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    model = get_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with deterministic(dev):
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        n_params = sum(a.numel() for _, a in tree_leaves(params))
+        n_model = n_params - params["embed"].numel()       # outside the embed lookup
+        ocfg = AdamWConfig(warmup_steps=max(steps // 20, 2), total_steps=steps)
+        opt = optim.init(ocfg, params)
+        final_norm = "ln_out" if "ln_out" in params else "ln_f"
+        probe = (params[final_norm].clone(), params["embed"][:4].clone())
+        dcfg = LMDataConfig(cfg.vocab, B, S)
+        step = make_train_step(model, ocfg, donate=True)
+        log, dropped = [], []
+        for i in range(steps):
+            batch = lm_batch(dcfg, i, device=dev)
+            with recording_router() as calls:
+                t0 = time.perf_counter()
+                params, opt, m = step(params, opt, batch)
+                loss = float(m["loss"])                         # the step's sync
+                ms = (time.perf_counter() - t0) * 1e3
+            log.append(dict(step=i, loss=loss, grad_norm=float(m["grad_norm"]),
+                            lr=float(m["lr"]), ms=ms,
+                            allocated=torch.cuda.memory_allocated(),
+                            peak_so_far=torch.cuda.max_memory_allocated()))
+            dropped.append([moe.dropped_assignments(cfg, c[0]) for c in calls])
+        del opt, step
+    timed_ms = [r["ms"] for r in log[1:]] or [log[0]["ms"]]     # after the first step
+    tok_s = B * S / (statistics.median(timed_ms) / 1e3)
+    changed = not (torch.equal(probe[0], params[final_norm])
+                   and torch.equal(probe[1], params["embed"][:4]))
+    finite = all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in log)
+    rec = dict(phase=13, part=part, card=smi, arch=arch, cut=TRAIN_CUTS[arch],
+               n_layers=cfg.n_layers, batch=B, seq=S, dtype=str(cfg.dtype),
+               param_count=n_params, steps=log, tokens_per_s=tok_s,
+               tokens_per_s_from="the median step after the first",
+               peak_memory_allocated=torch.cuda.max_memory_allocated(),
+               checks=dict(finite=finite, params_changed=changed))
+    if arch == "qwen1.5-4b":
+        rec.update(model_params=n_model, model_tflops=6 * n_model * tok_s / 1e12,
+                   peak_bf16_tflops=PEAK_BF16_PER_S / 1e12,
+                   note="model TFLOP/s counts 6 N per token (one forward, one backward); "
+                        "with remat the card runs each block's forward twice (8 N)")
+        check(n_model == TRAIN_MODEL_PARAMS, f"13c: {arch} has {n_model} parameters "
+                                             f"outside embed, not {TRAIN_MODEL_PARAMS}")
+    if cfg.moe:
+        rec.update(dropped_assignments_per_router_call=dropped,
+                   note="two router calls a step: the forward and the remat recompute")
+    emit(**rec)
+    check(finite, f"13{part}: {arch}: a loss or grad norm is not finite: {log}")
+    check(changed, f"13{part}: {arch}: the parameters did not change")
+    return model, params
+
+
+def _phase13_serve(dev, smi, model, params) -> dict:
+    """Phase 13 (f): the trained qwen1.5-4b embeds TRAIN_SERVE's documents
+    and queries; UG over them (the serve CLI's UGConfig), cuda == torch
+    bitwise, a mixed search and its recall; returns the launches of
+    TRAIN_KERNELS over the build and the searches, counted from 0."""
+    import statistics
+
+    import torch
+
+    import dataclasses
+
+    from repro_torch.core import Semantics, UGConfig, UGIndex
+    from repro_torch.core import intervals as iv
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import embed_batches
+    from repro_torch.serve import ServeEngine
+
+    with torch.no_grad():
+        n, nq = TRAIN_SERVE["docs"], TRAIN_SERVE["queries"]
+        cfg = model.cfg
+        engine = ServeEngine(model, params)
+        g = torch.Generator(device=dev).manual_seed(5)
+        docs = torch.randint(0, cfg.vocab, (n, DOC_LEN), generator=g, device=dev)
+        x, embed_s = timed(lambda: embed_batches(engine, docs))
+        norms = x.norm(dim=-1)
+        unit = bool(torch.isfinite(x).all()) and float((norms - 1).abs().max()) <= 1e-5
+        check(unit, "13f: an embedding of the trained tower is not finite or not of unit norm")
+        qv = embed_batches(engine, torch.randint(0, cfg.vocab, (nq, DOC_LEN), generator=g,
+                                                 device=dev))
+        ints = iv.sample_uniform_intervals(g, n)
+        ucfg = UGConfig(ef_spatial=32, ef_attribute=64, max_edges_if=32, max_edges_is=32,
+                        iterations=3, repair_width=16, exact_spatial=n <= 4096)
+        ops.reset_launches()                               # (f)'s path
+        idx = UGIndex.build(x, ints, dataclasses.replace(ucfg, prune_backend="cuda"), device=dev)
+        c = torch.rand((nq, 1), generator=g, device=dev)
+        wide = torch.cat([(c - 0.3).clamp_min(0.0), (c + 0.3).clamp_max(1.0)], dim=1)
+        sems = [[Semantics.IF, Semantics.IS, Semantics.RS, Semantics.RF][i % 4]
+                for i in range(nq)]
+        is_rs = torch.tensor([s is Semantics.RS for s in sems], device=dev)
+        qi = torch.where(is_rs[:, None], torch.cat([c, c], dim=1), wide)
+        idx.search_mixed(qv, qi, sems, **SEARCH)            # warm-up
+        seconds = []
+        for _ in range(3):
+            res, sec = timed(lambda: idx.search_mixed(qv, qi, sems, **SEARCH))
+            seconds.append(sec)
+        launches = {name: ops.launches.get(name, 0) for name in TRAIN_KERNELS}   # (f) ends
+        recalls = recall_per_semantics(res, scored_queries(idx, qv, qi, sems))
+        plain = UGIndex.build(x, ints, dataclasses.replace(ucfg, prune_backend="torch"),
+                              device=dev)
+        same = bits_equal(idx.graph.nbrs, plain.graph.nbrs) and \
+            bits_equal(idx.graph.status, plain.graph.status)
+        med = statistics.median(seconds)
+        emit(phase=13, part="f", card=smi, arch=cfg.name, docs=n, doc_len=DOC_LEN,
+             d=x.shape[1], embed_seconds=embed_s, tokens_per_s=n * DOC_LEN / embed_s,
+             max_norm_err=float((norms - 1).abs().max()), build_seconds=idx.build_seconds,
+             queries=nq, search_seconds=seconds, qps=nq / med, iters=res.iters,
+             recall_at_10=recalls, mean_recall_at_10=mean(recalls.values()),
+             launches_training=launches,
+             checks=dict(unit_norm=unit, build_cuda_equals_torch=same))
+        check(same, "13f: the build over the trained embeddings: cuda != torch")
+        check(mean(recalls.values()) >= 0.02,
+              f"13f: mean recall@10 {recalls} < 0.02 over the trained tower's embeddings")
+        for name in TRAIN_KERNELS:
+            check(launches[name] > 0, f"{name} was not launched on phase 13's path")
+        del idx, plain, x, qv, engine
+    torch.cuda.empty_cache()
+    return launches
+
+
 def result_on_cpu(res):
     """A card result's tensors on the CPU."""
     from repro_torch.core import SearchResult
@@ -2482,6 +2965,7 @@ def main() -> int:
     legacy_launches = run(10, phase10_legacy_bench, dev, main_path, smi)
     tower_launches = run(11, phase11_towers, dev, smi)
     family_launches = run(12, phase12_families, dev, smi)
+    training_launches = run(13, phase13_training, dev, smi)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -2501,7 +2985,9 @@ def main() -> int:
                if name in LEGACY_BENCH_KERNELS else {}),
             **({"launches_towers": tower_launches[name]} if name in TOWER_KERNELS else {}),
             **({"launches_families": family_launches[name]}
-               if name in FAMILY_KERNELS else {})))
+               if name in FAMILY_KERNELS else {}),
+            **({"launches_training": training_launches[name]}
+               if name in TRAIN_KERNELS else {})))
     left = children_left()
     check(not left, f"processes this run started are still running: {left}")
     emit(seconds=time.perf_counter() - t_start, phase_seconds=phase_seconds, card=smi,

@@ -29,15 +29,18 @@ from repro_torch.serve import ServeEngine
 PRODUCT_KERNELS = ("gemm", "nvjet", "xmma", "cutlass")     # names of cuBLAS's product kernels
 
 
-def trace_split(trace: dict, window: str) -> dict:
+def trace_split(trace: dict, window: str, *, last: bool = True) -> dict:
     """Device busy time and idle share of a chrome trace over the span of
     the ``window`` annotation (stretched to the last kernel's end), its
     kernel time split into the library's matrix products and the rest,
-    and the kernels that took the most time."""
+    and the kernels that took the most time.  ``last=False`` keeps only
+    the kernels that start inside the span (a window that ends in a
+    synchronize, with other windows after it)."""
     events = trace["traceEvents"]
     span = next(e for e in events if e.get("name") == window and e.get("cat") == "user_annotation")
     t0 = span["ts"]
-    kernels = [e for e in events if e.get("cat") == "kernel" and e["ts"] + e["dur"] >= t0]
+    kernels = [e for e in events if e.get("cat") == "kernel" and e["ts"] + e["dur"] >= t0
+               and (last or e["ts"] <= t0 + span["dur"])]
     t1 = max([t0 + span["dur"]] + [e["ts"] + e["dur"] for e in kernels])
     busy, end = 0.0, t0
     for e in sorted(kernels, key=lambda e: e["ts"]):

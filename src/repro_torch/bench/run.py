@@ -14,7 +14,9 @@ kernels and says nothing of the card: its rows name the device they ran on.
 ``--quick`` and ``--smoke`` (which implies ``--quick``) take the reference's
 smaller sizes, and ``--smoke`` turns on the tables' own gates (the mixed
 schedule's iteration speedup, the churn recall gap, the int8 byte
-reduction, the async serve QPS ratio).  ``--check BASELINE`` is the perf
+reduction, the async serve QPS ratio).  ``lm_steps`` times a reduced train
+step of three archs; its rows carry no recall or bytes, so the gate holds
+none of them.  ``--check BASELINE`` is the perf
 gate: it fails on a recall below its committed floor, a byte count above
 its committed ceiling, or a committed row or metric that this run lacks;
 ``--write-baseline PATH`` derives those bars from this run (floor = recall
@@ -25,16 +27,22 @@ baseline is ``src/repro_torch/bench/baseline_smoke.json``, written by
 """
 from __future__ import annotations
 
-import argparse
-import json
-import re
-import sys
-import time
-import traceback
+import os
 
-import torch
+# the lm_steps table trains in deterministic mode, whose cuBLAS needs this
+# workspace setting before the process's first product
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
-from repro_torch.bench import common, tables
+import argparse  # noqa: E402
+import json  # noqa: E402
+import re  # noqa: E402
+import sys  # noqa: E402
+import time  # noqa: E402
+import traceback  # noqa: E402
+
+import torch  # noqa: E402
+
+from repro_torch.bench import common, tables  # noqa: E402
 
 _METRIC = re.compile(r"(\w+)=([-+]?[0-9]*\.?[0-9]+(?:[eE][-+]?[0-9]+)?)\b")
 
@@ -174,6 +182,7 @@ def main(argv=None) -> int:
         ("memory", lambda: tables.bench_memory(b, require_reduction=3.0 if smoke else None)),
         ("serve", lambda: tables.bench_serve(b, require_qps_ratio=0.85 if smoke else None)),
         ("kernels", lambda: tables.bench_kernels(device=dev)),
+        ("lm_steps", lambda: tables.bench_lm_steps(device=dev)),
     ]
     only = args.only.split(",") if args.only else None
     info = device_info(dev)

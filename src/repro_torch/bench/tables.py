@@ -5,7 +5,8 @@ Each returns rows (``common.row``): name, us_per_call, derived, and the
 unrounded metrics behind ``derived``.  Every table of the reference's index
 half is here: Exp-1 to Exp-7, the fused-against-legacy beam sweep, the
 mixed workload, the build and memory tiers, the streaming updates, the
-serve runtime and the kernel table.  A backend in a row name takes the
+serve runtime and the kernel table, and the LM train-step table
+(``bench_lm_steps``).  A backend in a row name takes the
 port's name for the reference's role (``xla`` → ``torch``, ``pallas`` →
 ``cuda``; ``legacy`` stays); the CPU runs ``legacy`` and ``torch``, the
 card ``cuda`` as well, so every row of a CPU run also comes out of a card
@@ -776,4 +777,43 @@ def bench_kernels(nq: int = 64, nx: int = 4096, d: int = 128, *, device=None, da
         nq, 32, "plain version (bit-identical)")
     add("kernel_expandscore_legacy", lambda: expand_score_legacy(x, idx, q), nq, 32,
         "(B,C,d) gather + matmul baseline")
+    return rows
+
+
+# ---------------------------------------------------------------- LM train steps
+LM_STEP_ARCHS = ("qwen3-32b", "rwkv6-1.6b", "qwen3-moe-235b-a22b")
+LM_STEP_BATCH = (2, 64)       # (batch, seq) of one timed step
+
+
+def bench_lm_steps(*, device=None):
+    """Reduced-config train-step times for the reference's three archs: one
+    ``make_train_step`` (not donated) on an all-ones batch of 2 × 64
+    tokens, in deterministic mode as ``launch/train.py`` runs it; the
+    median of two timed steps after one warm-up, ``tokens/s`` = 2 · 64 over
+    it."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import get_model
+    from repro_torch.train import AdamWConfig, make_train_step, optim
+    from repro_torch.train.step import deterministic
+
+    dev = resolve_device(device)
+    B, S = LM_STEP_BATCH
+    rows = []
+    with deterministic(dev):
+        for arch in LM_STEP_ARCHS:
+            cfg = get_arch(arch).reduced
+            model = get_model(cfg)
+            params = model.init(torch.Generator(device=dev).manual_seed(0))
+            ocfg = AdamWConfig(warmup_steps=1, total_steps=8)
+            ostate = optim.init(ocfg, params)
+            step = make_train_step(model, ocfg, donate=False)
+            b = {"tokens": torch.ones((B, S), dtype=torch.int32, device=dev),
+                 "labels": torch.ones((B, S), dtype=torch.int32, device=dev),
+                 "mask": torch.ones((B, S), dtype=torch.float32, device=dev)}
+            if cfg.family == "encdec":
+                b["frames"] = torch.zeros((B, S // 2, cfg.d_model), device=dev)
+            dt, _ = common.timed(lambda: step(params, ostate, b), device=dev, calls=(1, 2))
+            rows.append(common.row(f"train_step_{arch}_reduced", dt * 1e6,
+                                   f"tokens/s={B * S / dt:.0f}", seconds=dt,
+                                   tokens_per_s=B * S / dt))
     return rows

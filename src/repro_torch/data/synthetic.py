@@ -1,19 +1,102 @@
-"""Synthetic vector corpora with interval attributes (the index half of the
-reference's data pipeline).
+"""Deterministic synthetic data: LM batches and vector corpora with interval
+attributes.
 
-Gaussian-mixture embeddings plus the paper's uniform interval model (§3.2)
-and the short/long/mixed/point query workloads of Exp-1/Exp-3.  Everything
-is drawn from a ``torch.Generator`` seeded with ``seed`` on the target
-device, so a corpus is made in bulk where it is used; the numbers differ
-from the reference's ``jax.random`` draws.
+Everything is a pure function of its seeds, so a restart resumes from a
+checkpointed cursor with the same data.  Two product lines:
+
+* **LM batches** — ``tokens``/``labels``/``mask`` (and encoder ``frames``)
+  at any (batch, seq) shape, with a Zipf-ish marginal so losses are
+  non-degenerate.  A batch is a pure function of ``(seed, step)``: it is
+  drawn on the CPU from a ``torch.Generator`` seeded with
+  :func:`lm_seed` and then moved, so the card and the CPU see the same
+  batches;
+* **Vector corpora** — Gaussian-mixture embeddings plus the paper's
+  uniform interval model (§3.2) and the short/long/mixed/point query
+  workloads of Exp-1/Exp-3, drawn from a ``torch.Generator`` seeded with
+  ``seed`` on the target device, so a corpus is made in bulk where it is
+  used.
+
+The numbers differ from the reference's ``jax.random`` draws.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
 
 import torch
 
 from repro_torch.kernels.util import resolve_device
+
+
+# ---------------------------------------------------------------------------
+# LM token stream
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class LMDataConfig:
+    vocab: int
+    batch: int            # global batch
+    seq: int
+    seed: int = 0
+
+
+def lm_seed(seed: int, step: int) -> int:
+    """The generator seed of step ``step``'s batch:
+    ``(seed · 2654435761 + step) mod 2³²``.  The CPU generator keeps 32
+    bits of its seed, so the rule folds both into 32: every step of one
+    seed gets its own stream (for ``step < 2³²``)."""
+    if step < 0 or seed < 0:
+        raise ValueError(f"lm_batch takes a non-negative seed and step (seed {seed}, "
+                         f"step {step})")
+    return (seed * 2654435761 + step) % 2 ** 32
+
+
+def lm_batch(cfg: LMDataConfig, step: int, *, frames_dim: int = 0, frames_len: int = 0,
+             device=None) -> dict:
+    """The global LM batch of one step, on ``device`` (``None`` = the card).
+
+    Tokens are ``(u · u · (vocab − 1))`` truncated to int32 for uniform
+    ``u`` (squaring skews them toward low ids), ``seq + 1`` a row;
+    ``tokens``/``labels`` are the row shifted by one, ``mask`` is ones,
+    and ``frames`` (when ``frames_dim``) are standard normal
+    ``(batch, frames_len, frames_dim)`` float32."""
+    dev = resolve_device(device)
+    g = torch.Generator().manual_seed(lm_seed(cfg.seed, step))
+    u = torch.rand((cfg.batch, cfg.seq + 1), generator=g, dtype=torch.float32)
+    toks = (u * u * (cfg.vocab - 1)).to(torch.int32)
+    batch = {
+        "tokens": toks[:, :-1],
+        "labels": toks[:, 1:],
+        "mask": torch.ones((cfg.batch, cfg.seq), dtype=torch.float32),
+    }
+    if frames_dim:
+        batch["frames"] = torch.randn((cfg.batch, frames_len, frames_dim), generator=g,
+                                      dtype=torch.float32)
+    return {k: v.contiguous().to(dev) for k, v in batch.items()}
+
+
+def lm_batches(cfg: LMDataConfig, start_step: int = 0, **kw) -> Iterator[dict]:
+    step = start_step
+    while True:
+        yield lm_batch(cfg, step, **kw)
+        step += 1
+
+
+def host_slice(global_batch: dict, host_id: int, n_hosts: int) -> dict:
+    """Host ``host_id``'s rows of a global batch (of nested dicts): each
+    leaf's ``[host_id · per, (host_id + 1) · per)`` rows, ``per`` its rows
+    over ``n_hosts``."""
+    def sl(a):
+        if isinstance(a, dict):
+            return {k: sl(v) for k, v in a.items()}
+        per = a.shape[0] // n_hosts
+        return a[host_id * per:(host_id + 1) * per]
+
+    return sl(global_batch)
+
+
+# ---------------------------------------------------------------------------
+# Vector + interval corpora (paper benchmarks)
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)

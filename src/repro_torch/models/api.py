@@ -1,10 +1,9 @@
 """Model API: one surface over the four architecture families.
 
 ``Model`` bundles the family-dispatched functions every launcher needs:
-``init``/``shapes``/``forward`` and the serve path ``prefill``/
-``init_decode_state``/``decode_step``, over the decoder (dense and MoE),
-rwkv6, zamba2 and encdec families.  ``loss`` waits for ROADMAP.md queue 1,
-item 9, slice 3.
+``init``/``shapes``/``loss``/``forward`` (the train path) and the serve
+path ``prefill``/``init_decode_state``/``decode_step``, over the decoder
+(dense and MoE), rwkv6, zamba2 and encdec families.
 """
 from __future__ import annotations
 
@@ -14,7 +13,7 @@ from typing import Any
 import torch
 
 from repro_torch.models import encdec, rwkv_model, transformer, zamba
-from repro_torch.models.common import SLICE_TRAINING, ModelConfig, init_params
+from repro_torch.models.common import ModelConfig, init_params
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,7 +31,15 @@ class Model:
 
     # ------------------------------------------------------------- train
     def loss(self, params, batch):
-        raise NotImplementedError(f"the training losses are not ported yet ({SLICE_TRAINING})")
+        """``(scalar loss, {"ce", "aux"})`` of one batch: ``tokens``,
+        ``labels``, ``mask`` (and ``frames`` for the encdec family)."""
+        f = {
+            "decoder": transformer.loss_fn,
+            "encdec": encdec.loss_fn,
+            "rwkv6": rwkv_model.loss_fn,
+            "zamba2": zamba.loss_fn,
+        }[self.cfg.family]
+        return f(self.cfg, params, batch)
 
     def forward(self, params, tokens, **kw):
         """Token-only forward: (hidden, aux, caches|None).  The encdec family

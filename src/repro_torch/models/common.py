@@ -11,8 +11,12 @@ one of two modes:
 * ``shape`` — ``meta`` tensors: shapes and dtypes, no memory.
 
 The reference's third mode (``spec``: JAX ``PartitionSpec``s, with
-``param_specs``/``param_shardings``/``batch_spec``) goes with the training
-substrate's sharding (ROADMAP.md queue 1, item 9, slice 3).
+``param_specs``/``param_shardings``/``batch_spec``) goes with the mesh half
+of training (ROADMAP.md queue 1, item 9, slice 4).
+
+:func:`checkpointed` and :func:`remat` are the reference's
+``jax.checkpoint(..., policy=nothing_saveable)``: a checkpointed call
+keeps its inputs and recomputes its insides in the backward.
 """
 from __future__ import annotations
 
@@ -22,8 +26,9 @@ from typing import Any, Sequence
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
-SLICE_TRAINING = "ROADMAP.md queue 1, item 9, slice 3"   # losses, train/, shardings
+SLICE_TRAINING = "ROADMAP.md queue 1, item 9, slice 4"   # the mesh half of training
 
 
 # ---------------------------------------------------------------------------
@@ -76,8 +81,9 @@ class ModelConfig:
     # enc-dec (seamless-m4t)
     enc_layers: int = 0
 
-    # numerics / structure; ``remat`` and ``scan_layers`` change nothing on
-    # a forward-only path (the layers run one after another in Python)
+    # numerics / structure; ``remat`` checkpoints each block when autograd
+    # records (its backward recomputes the block; no number changes);
+    # ``scan_layers`` changes nothing (the layers run one after another)
     dtype: Any = torch.bfloat16
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
@@ -110,6 +116,21 @@ def tree_leaves(tree, path: tuple = ()) -> list[tuple[tuple, Any]]:
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k], path + (k,))]
     return [(path, tree)]
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)``, checkpointed when autograd records: the backward
+    recomputes ``fn`` from ``args`` instead of keeping its activations."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def remat(cfg: "ModelConfig", fn):
+    """``fn``, checkpointed on every call when ``cfg.remat``."""
+    if not cfg.remat:
+        return fn
+    return lambda *args: checkpointed(fn, *args)
 
 
 def tree_map(fn, tree):

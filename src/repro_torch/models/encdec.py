@@ -15,8 +15,8 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models.common import ModelConfig, rms_norm, rope, swiglu
-from repro_torch.models.transformer import _stack, layer, unembed
+from repro_torch.models.common import ModelConfig, remat, rms_norm, rope, swiglu
+from repro_torch.models.transformer import _stack, layer, lm_loss, unembed, unstack
 
 
 def _ffn_params(cfg, b, L, lax_):
@@ -70,12 +70,16 @@ def encode(cfg: ModelConfig, params, frames):
     non-causal self-attention."""
     x = frames.to(cfg.dtype) @ params["frame_proj"]
     positions = _positions(x)
-    for i in range(cfg.enc_layers or cfg.n_layers):
-        p_l = layer(params["encoder"], i)
-        h = rms_norm(x, p_l["ln1"], cfg.norm_eps)
+
+    def blk(xx, p_l):
+        h = rms_norm(xx, p_l["ln1"], cfg.norm_eps)
         a, _ = attn.gqa_attend(cfg, p_l["attn"], h, positions, causal=False)
-        x = x + a
-        x = x + _ffn(p_l, rms_norm(x, p_l["ln2"], cfg.norm_eps))
+        xx = xx + a
+        return xx + _ffn(p_l, rms_norm(xx, p_l["ln2"], cfg.norm_eps))
+
+    body = remat(cfg, blk)
+    for p_l in unstack(params["encoder"]):
+        x = body(x, p_l)
     return rms_norm(x, params["ln_enc"], cfg.norm_eps)
 
 
@@ -94,13 +98,15 @@ def _dec_block(cfg, p_l, x, positions, enc_kv, self_cache=None, cache_len=None):
     return x, kv
 
 
-def cross_kv(cfg: ModelConfig, params, enc_out):
+def cross_kv(cfg: ModelConfig, params, enc_out, dec_layers=None):
     """Every decoder layer's cross-attention (K, V) of the encoder output,
-    stacked (L, B, S_enc, KV, hd); K roped at the encoder's positions."""
+    stacked (L, B, S_enc, KV, hd); K roped at the encoder's positions.
+    ``dec_layers``: the decoder's per-layer trees, where the caller has
+    them (``unstack(params["decoder"])``)."""
     positions = _positions(enc_out)
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        p = layer(params["decoder"], i)["cross_attn"]
+    for p_l in dec_layers if dec_layers is not None else unstack(params["decoder"]):
+        p = p_l["cross_attn"]
         k = attn._heads(enc_out, p["wk"])
         v = attn._heads(enc_out, p["wv"])
         if cfg.qkv_bias:
@@ -116,10 +122,20 @@ def cross_kv(cfg: ModelConfig, params, enc_out):
 def decode_train(cfg: ModelConfig, params, tokens, enc_out):
     x = params["embed"][tokens.long()]
     positions = _positions(x)
-    enc_kvs = cross_kv(cfg, params, enc_out)
-    for i in range(cfg.n_layers):
-        x = _dec_block(cfg, layer(params["decoder"], i), x, positions, layer(enc_kvs, i))[0]
+    dec = unstack(params["decoder"])
+    enc_kvs = unstack(cross_kv(cfg, params, enc_out, dec))
+    body = remat(cfg, lambda xx, p_l, ekv: _dec_block(cfg, p_l, xx, positions, ekv)[0])
+    for p_l, ekv in zip(dec, enc_kvs):
+        x = body(x, p_l, ekv)
     return rms_norm(x, params["ln_f"], cfg.norm_eps)
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """The decoder's cross-entropy over ``batch["frames"]`` encoded; no aux."""
+    enc_out = encode(cfg, params, batch["frames"])
+    hidden = decode_train(cfg, params, batch["tokens"], enc_out)
+    ce = lm_loss(cfg, params, hidden, batch["labels"], batch["mask"])
+    return ce, {"ce": ce, "aux": 0.0}
 
 
 class EncDecState(NamedTuple):

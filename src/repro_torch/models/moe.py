@@ -4,9 +4,16 @@ The reference groups the dispatch by data shard and, under an active mesh,
 takes an expert-parallel path with two all-to-alls over its ``model`` axis
 (``_moe_ffn_ep``).  One card holds one shard, so ``moe_ffn`` is the
 reference's local path with one group (``G = 1``), the path every serve
-call of the reference runs without a mesh; the expert-parallel path and
-its ``_local_dispatch`` come with the training substrate's sharding
-(ROADMAP.md queue 1, item 9, slice 3).
+call and every train step of the reference runs without a mesh; the
+expert-parallel path and its ``_local_dispatch`` come with the mesh half of
+training (ROADMAP.md queue 1, item 9, slice 4).
+
+The backward passes through the router's top-k values and the gate
+renormalisation to the router, and through ``mean_p`` in the Switch aux;
+the expert choices and the capacity drops carry no gradient, as in the
+reference.  The dispatch ``xt[t_s]`` and the combine ``contrib[slot]``
+differentiate to float scatter-adds, made deterministic on the card by
+PyTorch's deterministic mode (``train/step.py::deterministic``).
 
 Router aux loss follows Switch (load-balance: E · Σ_e f_e · p_e).
 """

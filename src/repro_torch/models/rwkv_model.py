@@ -1,7 +1,8 @@
 """RWKV6 (Finch) full model: attention-free LM with O(1) decode state.
 
-The layers run one after another on slices ``p[i]`` of the stacked blocks.
-The decode path runs the same block with ``S = 1`` and the carried state
+The layers run one after another on the per-layer trees of the stacked
+blocks (``transformer.unstack``), each checkpointed with ``cfg.remat`` as
+the reference's scan body is.  The decode path runs the same block with ``S = 1`` and the carried state
 (``chunked_linear_attention`` with chunk 1), as the reference's does.
 """
 from __future__ import annotations
@@ -12,16 +13,23 @@ import torch
 
 from repro_torch.kernels.util import resolve_device
 from repro_torch.models import ssm
-from repro_torch.models.common import ModelConfig, rms_norm
-from repro_torch.models.transformer import layer, unembed
+from repro_torch.models.common import ModelConfig, remat, rms_norm
+from repro_torch.models.transformer import layer, lm_loss, unembed, unstack
 
 
 def forward(cfg: ModelConfig, params, tokens):
     """Returns (hidden, 0.0, None): no aux loss, no cache."""
     x = params["embed"][tokens.long()]
-    for i in range(cfg.n_layers):
-        x = ssm.rwkv6_block(cfg, layer(params["blocks"], i), x)[0]
+    body = remat(cfg, lambda xx, p_l: ssm.rwkv6_block(cfg, p_l, xx)[0])
+    for p_l in unstack(params["blocks"]):
+        x = body(x, p_l)
     return rms_norm(x, params["ln_out"], cfg.norm_eps), 0.0, None
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    hidden, aux, _ = forward(cfg, params, batch["tokens"])
+    ce = lm_loss(cfg, params, hidden, batch["labels"], batch["mask"])
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 class RwkvState(NamedTuple):

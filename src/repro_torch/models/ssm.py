@@ -14,7 +14,15 @@ product ``(q̃ k̃ᵀ ⊙ M) v``, and the inter-chunk part is a recurrence over
 the chunk states, run here as a Python loop over the ``n`` chunks in order
 (the reference's ``lax.scan``).  Cumulative products run in log space,
 clamped at ``_LOG_MIN``.  All of it is PyTorch products and plain ops, as
-the reference's is XLA outside any Pallas kernel.
+the reference's is XLA outside any Pallas kernel; ``torch.autograd``
+differentiates it.  An entry clamped at ``_LOG_MIN`` passes no gradient, as
+under the reference's ``maximum``.
+
+The within-chunk cumulative sum is a product with a lower-triangular
+ones matrix (chunk × chunk): PyTorch's deterministic mode, which training
+turns on for the backward's scatter-adds, refuses a float ``cumsum`` on the
+card, and a product is deterministic there and differentiates to the
+transposed product.
 """
 from __future__ import annotations
 
@@ -59,7 +67,8 @@ def chunked_linear_attention(
         kf = torch.where(kill[None, :, :, None, None], 0.0, kf)
     lw = lw.reshape(B, n, chunk, H, Dk)
 
-    cum = torch.cumsum(lw, dim=2).clamp_min(_LOG_MIN)      # log P_t
+    tril = torch.ones((chunk, chunk), device=q.device).tril()
+    cum = torch.einsum("ts,bnshd->bnthd", tril, lw).clamp_min(_LOG_MIN)  # log P_t
     p_t = torch.exp(cum)
     inv_p = torch.exp(-cum)
     if inclusive:

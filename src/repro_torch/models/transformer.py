@@ -4,8 +4,11 @@ llama4's interleaved dense/MoE super-layers), early-fusion embeddings.
 
 Layers are stacked (a leading ``n_layers`` axis on every block parameter,
 as the reference stacks them for its ``lax.scan``) and run one after
-another on slices ``p[i]``.  The losses (``lm_loss``, ``loss_fn``) wait for
-ROADMAP.md queue 1, item 9, slice 3.
+another on the per-layer trees :func:`unstack` takes with one
+``torch.unbind`` a leaf.  With ``cfg.remat`` each block is checkpointed
+(``common.checkpointed``): the backward recomputes it from its input.
+``lm_loss`` is chunked cross-entropy whose ``(B, C, vocab)`` logits exist
+one chunk at a time, in the forward and, recomputed, in the backward.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.util import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.common import ModelConfig, rms_norm, swiglu, tree_map
+from repro_torch.models.common import ModelConfig, checkpointed, remat, rms_norm, swiglu, tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -88,6 +91,21 @@ def layer(blocks, i: int):
     return tree_map(lambda a: a[i], blocks)
 
 
+def unstack(blocks) -> list:
+    """Every layer's tree of a stacked tree (nested dicts or a tuple), by one
+    ``torch.unbind`` of each leaf.  Its backward stacks the layers'
+    gradients once; a select ``a[i]`` a layer would add a zero tensor of
+    the whole ``(L, ...)`` leaf per layer in the backward."""
+    if isinstance(blocks, (dict, tuple)):
+        keys = sorted(blocks) if isinstance(blocks, dict) else range(len(blocks))
+        parts = {k: unstack(blocks[k]) for k in keys}
+        n = len(parts[next(iter(keys))])
+        if isinstance(blocks, dict):
+            return [{k: parts[k][i] for k in blocks} for i in range(n)]
+        return [tuple(parts[k][i] for k in keys) for i in range(n)]
+    return list(torch.unbind(blocks, 0))
+
+
 def _stack(per_layer: list):
     """Per-layer (a, b) cache pairs as one stacked (L, ...) pair."""
     return tuple(torch.stack(parts) for parts in zip(*per_layer))
@@ -143,12 +161,13 @@ def layer_order(cfg: ModelConfig, params) -> list:
     configs, super-layer by super-layer, its dense blocks then its MoE
     block (the order the caches are stacked in, ``(L, ...)``)."""
     if not interleaved(cfg):
-        return [layer(params["blocks"], i) for i in range(cfg.n_layers)]
+        return unstack(params["blocks"])
     me = cfg.moe_every
+    moe_layers, dense = unstack(params["blocks"]), unstack(params["dense_blocks"])
     order = []
     for s in range(cfg.n_layers // me):
-        order += [layer(params["dense_blocks"], s * (me - 1) + i) for i in range(me - 1)]
-        order.append(layer(params["blocks"], s))
+        order += dense[s * (me - 1):(s + 1) * (me - 1)]
+        order.append(moe_layers[s])
     return order
 
 
@@ -166,10 +185,11 @@ def forward(cfg: ModelConfig, params, tokens, *, embeds=None, collect_cache=Fals
     x = embed_tokens(cfg, params, tokens, embeds)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
+    body = remat(cfg, lambda xx, p_l: block_train(cfg, p_l, xx, positions))
     aux = 0.0
     caches = []
     for p_l in layer_order(cfg, params):
-        x, a, kv = block_train(cfg, p_l, x, positions)
+        x, a, kv = body(x, p_l)
         aux = aux + a
         if collect_cache:
             caches.append(kv)
@@ -180,6 +200,45 @@ def forward(cfg: ModelConfig, params, tokens, *, embeds=None, collect_cache=Fals
 def unembed(cfg: ModelConfig, params, h):
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     return h @ w
+
+
+def _chunk_ce(hc, yc, mc, w):
+    """``Σ (logsumexp − gold logit) · mask`` of one (B, C) chunk, the logits
+    in float32."""
+    logits = (hc @ w).float()                                  # (B, C, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, yc.long()[..., None])[..., 0]
+    return torch.sum((lse - gold) * mc)
+
+
+def lm_loss(cfg: ModelConfig, params, hidden, labels, mask):
+    """Chunked cross-entropy: the sequence in ``logits_chunk`` chunks (the
+    last padded), each chunk's masked sum added in chunk order, over
+    ``max(Σ mask, 1)``.  Each chunk is checkpointed, so its (B, C, vocab)
+    logits are recomputed in the backward and never saved."""
+    B, S, d = hidden.shape
+    C = min(cfg.logits_chunk, S)
+    n = (S + C - 1) // C
+    pad = n * C - S
+    h = F.pad(hidden, (0, 0, 0, pad)).reshape(B, n, C, d)
+    y = F.pad(labels, (0, pad)).reshape(B, n, C)
+    m = F.pad(mask, (0, pad)).reshape(B, n, C)
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(n):
+        total = total + checkpointed(_chunk_ce, h[:, i], y[:, i], m[:, i], w)
+    return total / torch.clamp_min(torch.sum(mask), 1.0)
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """Scalar training loss (LM cross-entropy + MoE aux) and ``{"ce", "aux"}``;
+    the early-fusion ``embeds`` positions carry no labels."""
+    embeds = batch.get("embeds")
+    hidden, aux, _ = forward(cfg, params, batch["tokens"], embeds=embeds)
+    if embeds is not None:
+        hidden = hidden[:, embeds.shape[1]:]
+    ce = lm_loss(cfg, params, hidden, batch["labels"], batch["mask"])
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -16,8 +16,8 @@ import torch
 from repro_torch.kernels.util import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
-from repro_torch.models.common import ModelConfig, rms_norm, swiglu
-from repro_torch.models.transformer import _stack, layer, unembed
+from repro_torch.models.common import ModelConfig, remat, rms_norm, swiglu
+from repro_torch.models.transformer import _stack, layer, lm_loss, unembed, unstack
 
 
 def _d_inner(cfg: ModelConfig) -> int:
@@ -75,16 +75,26 @@ def forward(cfg: ModelConfig, params, tokens, *, collect_cache=False):
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     sites, per, rem = _groups(cfg)
+    # the reference's remat sites: the mamba body and the shared block
+    mamba_body = remat(cfg, lambda xx, p_l: ssm.mamba2_block(cfg, p_l, xx, di)[0])
+    shared_body = remat(cfg, lambda xx, p: _shared_block(cfg, p, xx, positions))
+    mamba = unstack(params["mamba"])
     kvs = []
     for g in range(sites):
-        for i in range(g * per, (g + 1) * per):
-            x = ssm.mamba2_block(cfg, layer(params["mamba"], i), x, di)[0]
-        x, kv = _shared_block(cfg, params["shared_attn"], x, positions)
+        for p_l in mamba[g * per:(g + 1) * per]:
+            x = mamba_body(x, p_l)
+        x, kv = shared_body(x, params["shared_attn"])
         kvs.append(kv)
-    for i in range(sites * per, sites * per + rem):
-        x = ssm.mamba2_block(cfg, layer(params["mamba"], i), x, di)[0]
+    for p_l in mamba[sites * per:sites * per + rem]:
+        x = mamba_body(x, p_l)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return x, 0.0, (_stack(kvs) if collect_cache else None)
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    hidden, aux, _ = forward(cfg, params, batch["tokens"])
+    ce = lm_loss(cfg, params, hidden, batch["labels"], batch["mask"])
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 class ZambaState(NamedTuple):

@@ -19,8 +19,11 @@ its own ``Model.init`` and are carried across with ``params_from_numpy``.
 * The registry: the same archs, shapes and skips; ``input_specs`` of the
   same shapes and dtypes.  The other families (MoE, rwkv6, zamba2,
   encdec; their parity is in ``test_torch_moe.py`` and
-  ``test_torch_recurrent.py``) init and run, and ``loss`` raises
-  ``NotImplementedError`` naming its ROADMAP slice for all ten archs.
+  ``test_torch_recurrent.py``) init and run, and ``loss`` gives a finite
+  scalar with ``ce`` and ``aux`` for all ten archs, and one train step
+  changes the parameters (the reference's ``test_arch_smoke.py``; the
+  gradients are held against the reference in
+  ``test_torch_grads_*.py``).
 """
 import jax
 import numpy as np
@@ -256,10 +259,26 @@ def test_input_specs_match_reference(arch):
     assert not small["state"].cache[0].any()
 
 
+def lm_batch_for(cfg, B=1, S=4):
+    """A small batch: zero tokens, labels 1, a full mask (frames for encdec)."""
+    b = {"tokens": torch.zeros((B, S), dtype=torch.int32),
+         "labels": torch.ones((B, S), dtype=torch.int32), "mask": torch.ones((B, S))}
+    if cfg.family == "encdec":
+        b["frames"] = torch.zeros((B, 3, cfg.d_model))
+    return b
+
+
+def assert_finite_loss(model, params, batch):
+    loss, metrics = model.loss(params, batch)
+    assert loss.shape == () and bool(torch.isfinite(loss)) and set(metrics) == {"ce", "aux"}
+    assert abs(float(loss) - float(metrics["ce"]) - float(metrics["aux"])) <= 1e-5
+
+
 @pytest.mark.parametrize("arch", OTHER)
 def test_other_families_raise_naming_their_slice(arch):
     """The families ported after the dense towers init and run (encdec
-    through ``prefill``, with frames); only ``loss`` still raises."""
+    through ``prefill``, with frames), and their ``loss`` is a finite
+    scalar with ``ce`` and ``aux`` (it raised until item 9's slice 3)."""
     cfg = registry.get_arch(arch).reduced
     model = get_model(cfg)
     params = model.init(torch.Generator().manual_seed(0))
@@ -270,11 +289,24 @@ def test_other_families_raise_naming_their_slice(arch):
     else:
         hidden = model.forward(params, toks)[0]
     assert hidden.shape == (1, 4, cfg.d_model) and bool(torch.isfinite(hidden).all())
-    with pytest.raises(NotImplementedError, match="item 9, slice 3"):
-        model.loss(params, {})
+    assert_finite_loss(model, params, lm_batch_for(cfg))
 
 
 @pytest.mark.parametrize("arch", registry.list_archs())
 def test_loss_raises_naming_slice_3(arch):
-    with pytest.raises(NotImplementedError, match="item 9, slice 3"):
-        get_model(registry.get_arch(arch).reduced).loss({}, {})
+    """Item 9's slice 3 is ported: every arch's ``loss`` is a finite scalar
+    with ``ce`` and ``aux``, and one train step changes the parameters (the
+    reference's ``test_forward_and_train_step``)."""
+    from repro_torch.train import AdamWConfig, make_train_step, optim
+
+    model = get_model(registry.get_arch(arch).reduced)
+    params = model.init(torch.Generator().manual_seed(1))
+    batch = lm_batch_for(model.cfg, B=2, S=8)
+    assert_finite_loss(model, params, batch)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    new, _, metrics = make_train_step(model, ocfg, donate=False)(
+        params, optim.init(ocfg, params), batch)
+    assert bool(torch.isfinite(metrics["loss"]))
+    delta = sum(float((a.float() - b.float()).abs().sum())
+                for (_, a), (_, b) in zip(common.tree_leaves(params), common.tree_leaves(new)))
+    assert delta > 0, f"{arch}: no parameter update"
