@@ -271,6 +271,41 @@ the script exits non-zero without printing a result):
    repro_torch.bench.run --only lm_steps`` in a subprocess on the card:
    exit 0 and its three rows.
 
+14. the mesh half of training (``launch/shardings``, ``models/shard_ctx``,
+   the mesh train step, the MoE's global dispatch and expert-parallel path,
+   ``ckpt`` with shardings, ``ft.elastic.resume``, ``launch/train --mesh``)
+   in PyTorch's deterministic mode: (a) one process holding every shard of
+   a (2, 2) ("data", "model") mesh: the ten reduced archs (float32, TF32
+   off) take 2 mesh steps from the weights and masked ``lm_batch`` batches a
+   one-device ``make_train_step`` takes: the parameters after the first
+   step within a tenth of 13(a)'s gradient bound of their kind (1e-5
+   dense, 1e-4 MoE, recurrent and encdec) under ``AdamWConfig(eps=1e-3)``,
+   after the second within that gradient bound (the two runs
+   then start from parameters that differ by rounding, which the reduced
+   towers amplify), every block of the shape its spec gives, the MoE
+   archs' first-step ce and aux within 1e-6 relative and their dropped
+   assignments equal at every step; (b) ``shard_ctx.use_mesh`` on (2, 2) for reduced
+   qwen3-moe's and llama4's MoE layer: at capacity factor 16 the
+   expert-parallel output and input gradient within 1e-4 of the local
+   path's, at the config's capacity both paths' drops printed; (c) two
+   gloo processes share the card on (2, 2), (2, 1) and (1, 2) meshes:
+   reduced qwen1.5-4b and qwen3-moe's parameters after (a)'s steps
+   bitwise one process's on the same mesh ((a)'s on (2, 2)), and (b)'s EP
+   outputs and gradients bitwise; (d) rwkv6-1.6b whole in 2 gloo
+   processes on (2, 1), B = 4, S = 512, 3 steps: each process's peak
+   memory and held bytes (half the one-device bytes), ms a step split
+   into compute and collectives, tokens/s, loss and grad norm finite, the
+   parameters changed and, gathered, bitwise a one-process (2, 1) run;
+   qwen3-moe-235b-a22b's EP layer at full width (d 4096, 128 experts,
+   top-8) in 2 processes on (1, 2), forward and backward of B = 2,
+   S = 256, bitwise one process holding both shards, its ms and the bytes
+   its all-to-alls sent; (e) the trained rwkv6 (from (d)'s one-process
+   run) embeds, indexes and serves as 13(f) does, ``launches_mesh`` in
+   the kernels line; (f) ``launch.train.main`` in this process: reduced
+   qwen3-moe ``--mesh 2x2 --steps 6 --ckpt-every 3``, its final
+   checkpoint moved away, then ``--resume --mesh 1x2``: ``resumed at step
+   3``, the final parameters within 1e-5 of the straight run's.
+
 Before the last lines the script checks that no process it started (the
 compiler, the spawned ranks, multiprocessing's resource tracker) is still
 running; the line before the kernels line gives the run's seconds and each
@@ -425,6 +460,31 @@ TRAIN_CUTS = {
 }
 TRAIN_SERVE = dict(docs=4_096, queries=1_000)    # (f): the trained tower embeds and serves
 TRAIN_KERNELS = ("expand_score", "beam_merge", "prune_sweep")    # (f)'s path
+# phase 14: the mesh half of training
+MESH_SHAPE = (2, 2)            # (a), (b): ("data", "model"), one process holding every shard
+MESH_STEPS = 2                 # (a), (c): steps from the same weights and batches
+MESH_BATCH = (4, 32)           # (a), (c): batch x tokens; 80 % of the mask's positions kept
+MESH_CHECK_ARCHS = ("qwen1.5-4b", "qwen3-moe-235b-a22b")             # (c)
+# (a): |mesh - one device| on the parameters after the first step (from the same
+# weights), under AdamWConfig(eps=1e-3), by kind of tower: a tenth of GRAD_TOL, which
+# bounds the same towers' card - CPU gradients.  The card's products pick their
+# algorithm by shape (B = 2 a shard against B = 4), so the two steps sum in other
+# orders; seamless-m4t read 2.0e-5 on its first card call (the CPU: 6e-8), where
+# 13(a) read 5.2e-4 of the leaf's scale on its gradients
+MESH_PARAM_TOL = {"dense": 1e-5, "moe_or_recurrent": 1e-4}
+MESH_PROCS = 2                 # (c), (d): gloo processes sharing the card
+EP_ARCHS = ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b")      # (b): their MoE layer
+EP_SHAPE = (4, 16)             # (b): B x S of the EP layer check
+EP_TOL = 1e-4                  # (b): EP against the local path, the reference's test's bar
+MESH_FULL = dict(arch="rwkv6-1.6b", mesh=(2, 1), batch=4, seq=512, steps=3)     # (d)
+EP_FULL = dict(arch="qwen3-moe-235b-a22b", mesh=(1, 2), B=2, S=256)             # (d)
+MESH_CLI = dict(arch="qwen3-moe-235b-a22b", steps=6, ckpt_every=3, batch=4, seq=32,
+                mesh="2x2", resume_mesh="1x2")                        # (f)
+# (f): |resumed - straight| on every parameter; a CPU run of the same drill read 3.0e-8
+# (the resumed run sums each gradient over 1 data shard where the straight run sums 2)
+MESH_CLI_TOL = 1e-5
+MESH_SPAWN_TIMEOUT = 300       # (c), (d): seconds the spawned ranks may take
+MESH_KERNELS = ("expand_score", "beam_merge", "prune_sweep")         # (e)'s path
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 PEAK_TF32_PER_S = 495e12       # H100 SXM TF32 on the tensor cores, dense
@@ -2757,7 +2817,7 @@ def phase13_training(dev, smi) -> dict:
     # (c)'s parameters are on the card; then (d) rwkv6-1.6b and (e) one
     # qwen3-moe layer
     model, params = train_full_width("qwen1.5-4b", dev, smi)
-    launches = _phase13_serve(dev, smi, model, params)
+    launches = serve_trained(dev, smi, model, params, 13, "f", "launches_training")
     del model, params
     for arch in ("rwkv6-1.6b", "qwen3-moe-235b-a22b"):
         train_full_width(arch, dev, smi)
@@ -2854,11 +2914,12 @@ def train_full_width(arch, dev, smi):
     return model, params
 
 
-def _phase13_serve(dev, smi, model, params) -> dict:
-    """Phase 13 (f): the trained qwen1.5-4b embeds TRAIN_SERVE's documents
-    and queries; UG over them (the serve CLI's UGConfig), cuda == torch
-    bitwise, a mixed search and its recall; returns the launches of
-    TRAIN_KERNELS over the build and the searches, counted from 0."""
+def serve_trained(dev, smi, model, params, phase: int, part: str, key: str) -> dict:
+    """Phase 13 (f) and 14 (e): a trained tower embeds TRAIN_SERVE's
+    documents and queries; UG over them (the serve CLI's UGConfig), cuda ==
+    torch bitwise, a mixed search and its recall; returns the launches of
+    TRAIN_KERNELS over the build and the searches, counted from 0 (printed
+    under ``key``)."""
     import statistics
 
     import torch
@@ -2880,7 +2941,8 @@ def _phase13_serve(dev, smi, model, params) -> dict:
         x, embed_s = timed(lambda: embed_batches(engine, docs))
         norms = x.norm(dim=-1)
         unit = bool(torch.isfinite(x).all()) and float((norms - 1).abs().max()) <= 1e-5
-        check(unit, "13f: an embedding of the trained tower is not finite or not of unit norm")
+        check(unit, f"{phase}{part}: an embedding of the trained tower is not finite or not "
+                    "of unit norm")
         qv = embed_batches(engine, torch.randint(0, cfg.vocab, (nq, DOC_LEN), generator=g,
                                                  device=dev))
         ints = iv.sample_uniform_intervals(g, n)
@@ -2906,20 +2968,362 @@ def _phase13_serve(dev, smi, model, params) -> dict:
         same = bits_equal(idx.graph.nbrs, plain.graph.nbrs) and \
             bits_equal(idx.graph.status, plain.graph.status)
         med = statistics.median(seconds)
-        emit(phase=13, part="f", card=smi, arch=cfg.name, docs=n, doc_len=DOC_LEN,
+        emit(phase=phase, part=part, card=smi, arch=cfg.name, docs=n, doc_len=DOC_LEN,
              d=x.shape[1], embed_seconds=embed_s, tokens_per_s=n * DOC_LEN / embed_s,
              max_norm_err=float((norms - 1).abs().max()), build_seconds=idx.build_seconds,
              queries=nq, search_seconds=seconds, qps=nq / med, iters=res.iters,
              recall_at_10=recalls, mean_recall_at_10=mean(recalls.values()),
-             launches_training=launches,
+             **{key: launches},
              checks=dict(unit_norm=unit, build_cuda_equals_torch=same))
-        check(same, "13f: the build over the trained embeddings: cuda != torch")
+        check(same, f"{phase}{part}: the build over the trained embeddings: cuda != torch")
         check(mean(recalls.values()) >= 0.02,
-              f"13f: mean recall@10 {recalls} < 0.02 over the trained tower's embeddings")
+              f"{phase}{part}: mean recall@10 {recalls} < 0.02 over the trained tower's "
+              "embeddings")
         for name in TRAIN_KERNELS:
-            check(launches[name] > 0, f"{name} was not launched on phase 13's path")
+            check(launches[name] > 0, f"{name} was not launched on phase {phase}'s path")
         del idx, plain, x, qv, engine
     torch.cuda.empty_cache()
+    return launches
+
+
+def phase14_mesh(dev, smi) -> dict:
+    """The mesh half of training on the card (see the module docstring);
+    returns the launches of (e)."""
+    import dataclasses
+    import io
+    import math
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch, list_archs
+    from repro_torch.data import LMDataConfig, lm_batch
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharded import (
+        digest, ep_inputs, host_bits, run_ep_layer, run_mesh_train, spawn_ranks,
+        train_rank_program,
+    )
+    from repro_torch.launch.shardings import block_shape, dim_axes, gather_tree, shard_tree
+    from repro_torch.models import get_model, moe
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.train import AdamWConfig, make_train_step, optim
+    from repro_torch.train.step import deterministic
+
+    work = ROOT / "build" / "mesh_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    B, S = MESH_BATCH
+    opt_kw = dict(TRAIN_EPS_RULE)
+    mesh = make_mesh(MESH_SHAPE, ("data", "model"), device=dev)
+
+    def masked_batches(cfg):
+        """MESH_STEPS lm_batches (on the CPU), their masks 80 % ones."""
+        out = []
+        for i in range(MESH_STEPS):
+            kw = dict(frames_dim=cfg.d_model, frames_len=S // 2) if cfg.family == "encdec" else {}
+            b = lm_batch(LMDataConfig(cfg.vocab, B, S, seed=53), i, device="cpu", **kw)
+            mask = (torch.rand((B, S), generator=torch.Generator().manual_seed(54 + i)) < 0.8)
+            mask[:, 0] = True
+            b["mask"] = mask.float()
+            out.append(b)
+        return out
+
+    def on(dev_, batches):
+        return [{k: v.to(dev_) for k, v in b.items()} for b in batches]
+
+    with deterministic(dev):
+        # (a) one process holding every shard of (2, 2): the ten reduced archs
+        reduced, kept = {}, {}
+        t0 = time.perf_counter()
+        for arch in list_archs():
+            cfg = dataclasses.replace(get_arch(arch).reduced, dtype=torch.float32)
+            model = get_model(cfg)
+            host = redraw_constant_leaves(model.init(torch.Generator().manual_seed(51)),
+                                          torch.Generator().manual_seed(52), draws=TRAIN_DECAY)
+            batches = masked_batches(cfg)
+            ocfg = AdamWConfig(**opt_kw)
+            step = make_train_step(model, ocfg, donate=False)
+            p1 = tree_map(lambda a: a.to(dev), host)
+            o1 = optim.init(ocfg, p1)
+            one, after = [], []
+            for b in on(dev, batches):
+                drops = None
+                if cfg.moe:
+                    with torch.no_grad(), recording_router() as calls:
+                        model.loss(p1, b)
+                    drops = sum(moe.dropped_assignments(cfg, c[0]) for c in calls)
+                p1, o1, m = step(p1, o1, b)
+                one.append(dict(loss=float(m["loss"]), ce=float(m["ce"]), aux=float(m["aux"]),
+                                dropped=drops))
+                after.append(p1)
+            specs = model.specs(mesh)
+            spec_of = dict(tree_leaves(specs))
+            blocks = shard_tree(tree_map(lambda a: a.to(dev), host), mesh, specs)
+            bad_shapes = ["/".join(path) for path, t in tree_leaves(blocks)
+                          if tuple(t.shape) != block_shape(tuple(dict(tree_leaves(host))[path].shape),
+                                                           mesh, spec_of[path])]
+            mstep = make_train_step(model, ocfg, mesh, donate=False)
+            mo = optim.init(ocfg, blocks)
+            errs, mesh_m = [], []
+            for b, p_one in zip(on(dev, batches), after):
+                blocks, mo, m = mstep(blocks, mo, b)
+                mesh_m.append({k: float(v) for k, v in m.items()})
+                got = gather_tree(blocks, mesh, specs)
+                errs.append(max(max_abs_err(c, a) for (_, a), (_, c) in
+                                zip(tree_leaves(p_one), tree_leaves(got))))
+            kind = "dense" if cfg.family == "decoder" and not cfg.moe else "moe_or_recurrent"
+            rec = dict(max_param_err_by_step=errs, loss_one_device=[r["loss"] for r in one],
+                       loss_mesh=[r["loss"] for r in mesh_m],
+                       grad_norm_mesh=[r["grad_norm"] for r in mesh_m])
+            checks = dict(params_step1=errs[0] <= MESH_PARAM_TOL[kind],
+                          params_later=max(errs) <= GRAD_TOL[kind],
+                          block_shapes=not bad_shapes)
+            if cfg.moe:
+                ce_rel = [abs(r["ce"] - o["ce"]) / abs(o["ce"]) for r, o in zip(mesh_m, one)]
+                aux_rel = [abs(r["aux"] - o["aux"]) / abs(o["aux"]) for r, o in zip(mesh_m, one)]
+                drops = [r["dropped"] for r in one]
+                rec.update(ce_rel_err_by_step=ce_rel, aux_rel_err_by_step=aux_rel,
+                           dropped_one_device=drops, dropped_mesh=[r["dropped"] for r in mesh_m])
+                checks.update(ce=ce_rel[0] <= 1e-6, aux=aux_rel[0] <= 1e-6,
+                              dropped=drops == [int(r["dropped"]) for r in mesh_m])
+            rec["checks"] = checks
+            reduced[arch] = rec
+            if arch in MESH_CHECK_ARCHS:
+                kept[arch] = dict(host=host, batches=batches, got=got)
+            del blocks, mo, p1, o1, after
+        emit(phase=14, part="a", card=smi, mesh=MESH_SHAPE, batch=B, seq=S, steps=MESH_STEPS,
+             seconds=time.perf_counter() - t0,
+             tolerance=dict(params_step1={k: f"{v} under AdamWConfig(eps=1e-3)"
+                                          for k, v in MESH_PARAM_TOL.items()},
+                            params_later={k: v for k, v in GRAD_TOL.items()},
+                            moe_ce_aux_rel_step1=1e-6, dropped="equal at every step"),
+             note="the one-device and the mesh step sum in other orders (the card's products "
+                  "pick their algorithm by shape); step 1 starts from the same parameters, "
+                  "later steps from parameters that differ by step 1's rounding, which the "
+                  "reduced towers amplify as 13(a) records", reduced=reduced)
+        bad = {a: r for a, r in reduced.items() if not all(r["checks"].values())}
+        check(not bad, f"14a: the mesh step != the one-device step: {bad}")
+
+        # (b) the expert-parallel MoE layer under shard_ctx.use_mesh on (2, 2)
+        t0 = time.perf_counter()
+        ep, ep_kept = {}, {}
+        for arch in EP_ARCHS:
+            base = dataclasses.replace(get_arch(arch).reduced, dtype=torch.float32)
+            for cf in (16.0, base.capacity_factor):
+                cfg = dataclasses.replace(base, capacity_factor=cf)
+                layer, x, g = ep_inputs(cfg, *EP_SHAPE, seed=61, dev=dev)
+                res, elog = run_ep_layer(cfg, mesh, layer, x, g)
+                live = tree_map(lambda a: a.detach().clone().requires_grad_(True), layer)
+                xl = x.detach().clone().requires_grad_(True)
+                with torch.enable_grad(), recording_router() as calls:
+                    y0, a0 = moe._moe_ffn_local(cfg, live, xl)
+                    (dx0,) = torch.autograd.grad(torch.sum(y0.float() * g.float()) + a0, [xl])
+                rec = dict(capacity_factor=cf, dropped_ep=elog["dropped"],
+                           dropped_local=moe.dropped_assignments(cfg, calls[0][0]),
+                           y_err=max_abs_err(res["y"], y0.detach()),
+                           dx_err=max_abs_err(res["dx"], dx0),
+                           aux_ep=float(res["aux"]), aux_local=float(a0.detach()),
+                           seconds=elog["seconds"])
+                ep[f"{arch} cf {cf}"] = rec
+                if cf == 16.0:
+                    check(rec["y_err"] <= EP_TOL and rec["dx_err"] <= EP_TOL,
+                          f"14b: {arch}: EP != local (y {rec['y_err']}, dx {rec['dx_err']})")
+                    ep_kept[arch] = dict(cfg=cfg, layer=layer, x=x, g=g, res=res)
+        emit(phase=14, part="b", card=smi, mesh=MESH_SHAPE, shape=EP_SHAPE, tolerance=EP_TOL,
+             seconds=time.perf_counter() - t0, layers=ep)
+
+    # (c) two gloo processes sharing the card: the same steps and EP calls
+    t0 = time.perf_counter()
+    jobs, arrays, want = [], {}, {}
+    for arch in MESH_CHECK_ARCHS:
+        k = kept[arch]
+        model = get_model(dataclasses.replace(get_arch(arch).reduced, dtype=torch.float32))
+        for shape in ((2, 2), (2, 1), (1, 2)):
+            name = f"{arch}@{shape[0]}x{shape[1]}"
+            jobs.append(dict(name=name, kind="train", arch=arch, reduced=True, dtype="float32",
+                             mesh=shape, opt=opt_kw, steps=MESH_STEPS))
+            for path, t in tree_leaves(k["host"]):
+                arrays[f"{name}/p/" + "/".join(path)] = t.numpy()
+            for i, b in enumerate(k["batches"]):
+                for key in ("tokens", "labels", "mask"):
+                    arrays[f"{name}/b{i}/{key}"] = b[key].numpy()
+            if shape == MESH_SHAPE:
+                got = k["got"]                          # (a)'s one-process result
+            else:
+                with deterministic(dev):
+                    blocks, _, _ = run_mesh_train(
+                        model, make_mesh(shape, ("data", "model"), device=dev),
+                        tree_map(lambda a: a.to(dev), k["host"]), on(dev, k["batches"]), opt_kw)
+                got = blocks                            # one process: the blocks are whole
+            for path, t in tree_leaves(got):
+                want[f"{name}/p/" + "/".join(path)] = host_bits(t)
+    for arch in EP_ARCHS:
+        k, name = ep_kept[arch], f"ep-{arch}"
+        jobs.append(dict(name=name, kind="ep", cfg=dataclasses.asdict(k["cfg"]), dtype="float32",
+                         mesh=(MESH_SHAPE, ("data", "model"))))
+        for path, t in tree_leaves(k["layer"]):
+            arrays[f"{name}/ep/" + "/".join(path)] = t.cpu().numpy()
+        arrays[f"{name}/x"], arrays[f"{name}/g"] = k["x"].cpu().numpy(), k["g"].cpu().numpy()
+        for key, t in k["res"].items():
+            want[f"{name}/{key}"] = host_bits(t)
+    np.savez(work / "inputs_c.npz", **arrays)
+    (work / "c").mkdir()
+    spawn_ranks(train_rank_program, MESH_PROCS,
+                (str(work / "inputs_c.npz"), str(work / "c"),
+                 dict(device="cuda", threads=max(1, (os.cpu_count() or 2) // MESH_PROCS),
+                      save="arrays", jobs=jobs)),
+                backend="gloo", init_file=work / "init_c", timeout=MESH_SPAWN_TIMEOUT)
+    ranks = np.load(work / "c" / "rank0.npz")
+    differ = sorted(k for k in want if not np.array_equal(ranks[k], want[k]))
+    emit(phase=14, part="c", card=smi, procs=MESH_PROCS, jobs=[j["name"] for j in jobs],
+         arrays_compared=len(want), arrays_differing=differ[:20],
+         seconds=time.perf_counter() - t0)
+    check(not differ, f"14c: {len(differ)} arrays of the gloo ranks != one process's: {differ[:5]}")
+
+    # (d) full width: rwkv6-1.6b's mesh steps and qwen3-moe's EP layer in two
+    # gloo processes, then one process holding every shard of the same meshes
+    t0 = time.perf_counter()
+    steps = MESH_FULL["steps"]
+    full_opt = dict(warmup_steps=max(steps // 20, 2), total_steps=steps)
+    ecfg = dataclasses.replace(get_arch(EP_FULL["arch"]).config, n_layers=1,
+                               dtype=torch.bfloat16)
+    jobs = [dict(name="rwkv", kind="train", arch=MESH_FULL["arch"], reduced=False,
+                 dtype="bfloat16", mesh=MESH_FULL["mesh"], opt=full_opt, steps=steps,
+                 batch=MESH_FULL["batch"], seq=MESH_FULL["seq"], seed=0, moments=False),
+            dict(name="ep", kind="ep", cfg=dataclasses.asdict(ecfg), dtype="bfloat16",
+                 mesh=(EP_FULL["mesh"], ("data", "model")), B=EP_FULL["B"], S=EP_FULL["S"],
+                 seed=0)]
+    (work / "d").mkdir()
+    torch.cuda.empty_cache()
+    spawn_ranks(train_rank_program, MESH_PROCS,
+                (None, str(work / "d"),
+                 dict(device="cuda", threads=max(1, (os.cpu_count() or 2) // MESH_PROCS),
+                      save="digests", jobs=jobs)),
+                backend="gloo", init_file=work / "init_d", timeout=MESH_SPAWN_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    logs = [json.loads((work / "d" / f"rank{r}.json").read_text()) for r in range(MESH_PROCS)]
+    sums = np.load(work / "d" / "rank0.npz")
+
+    cfg = dataclasses.replace(get_arch(MESH_FULL["arch"]).config, dtype=torch.bfloat16)
+    model = get_model(cfg)
+    n_params = cfg.param_count()
+    one_device_bytes = dict(params=n_params * 2, moments=n_params * 4 * 2)
+    # what a process holds: each leaf split over "data" by its spec, whole otherwise
+    # (a dimension that does not divide stays whole, as in the reference)
+    held = sum(t.numel() // (MESH_PROCS if any("data" in a for a in dim_axes(spec, t.dim()))
+                             else 1)
+               for (_, t), (_, spec) in zip(tree_leaves(model.shapes()), tree_leaves(
+                   model.specs(make_mesh(MESH_FULL["mesh"], ("data", "model"), device=dev)))))
+    held_bytes = dict(params=held * 2, moments=held * 4 * 2)
+    Bf, Sf = MESH_FULL["batch"], MESH_FULL["seq"]
+    with deterministic(dev):
+        torch.cuda.reset_peak_memory_stats()
+        init = model.init(torch.Generator(device=dev).manual_seed(0))
+        probe = (init["ln_out"].clone(), init["embed"][:4].clone())
+        dcfg = LMDataConfig(cfg.vocab, Bf, Sf)
+        mesh_d = make_mesh(MESH_FULL["mesh"], ("data", "model"), device=dev)
+        blocks, opt, log1 = run_mesh_train(model, mesh_d, init,
+                                           [lm_batch(dcfg, i, device=dev) for i in range(steps)],
+                                           full_opt)
+        del init
+        one_peak = torch.cuda.max_memory_allocated()
+        trained = gather_tree(blocks, mesh_d, model.specs(mesh_d))
+        mine = {"rwkv/p/" + "/".join(path): digest(t) for path, t in tree_leaves(trained)}
+        del opt
+    changed = not (torch.equal(probe[0], trained["ln_out"])
+                   and torch.equal(probe[1], trained["embed"][:4]))
+    same = all(str(sums[k]) == v for k, v in mine.items())
+    per_proc = []
+    for r, lg in enumerate(logs):
+        t = lg["rwkv"]
+        med = sorted(t["seconds"][1:])[len(t["seconds"][1:]) // 2] if steps > 1 else t["seconds"][0]
+        coll = t["collective_seconds"]
+        per_proc.append(dict(
+            rank=r, peak_memory_allocated=t.get("peak_memory_allocated"),
+            param_bytes=t["param_bytes"], moment_bytes=t["moment_bytes"],
+            ms_per_step=[x * 1e3 for x in t["seconds"]],
+            collective_ms=[x * 1e3 for x in coll],
+            compute_ms=[(x - c) * 1e3 for x, c in zip(t["seconds"], coll)],
+            tokens_per_s=Bf * Sf / med, loss=t["loss"], grad_norm=t["grad_norm"]))
+    finite = all(math.isfinite(v) for p in per_proc for v in p["loss"] + p["grad_norm"])
+    half = all(p["param_bytes"] == held_bytes["params"]
+               and p["moment_bytes"] == held_bytes["moments"] for p in per_proc)
+    emit(phase=14, part="d", card=smi, arch=MESH_FULL["arch"], mesh=MESH_FULL["mesh"],
+         procs=MESH_PROCS, batch=Bf, seq=Sf, steps=steps, spawn_seconds=spawn_s,
+         one_device_bytes=one_device_bytes, held_bytes_by_specs=held_bytes,
+         held_fraction=held_bytes["params"] / one_device_bytes["params"], per_process=per_proc,
+         one_process=dict(ms_per_step=[x * 1e3 for x in log1["seconds"]],
+                          collective_ms=[x * 1e3 for x in log1["collective_seconds"]],
+                          loss=log1["loss"], peak_memory_allocated=one_peak),
+         checks=dict(finite=finite, params_changed=changed, held_bytes_half=half,
+                     gathered_bitwise_one_process=same))
+    check(finite and changed and half, f"14d: {MESH_FULL['arch']}: finite {finite}, "
+                                       f"changed {changed}, the bytes the specs give {half}")
+    check(same, f"14d: {MESH_FULL['arch']}: the gloo ranks' parameters != one process's")
+
+    # (e) the trained rwkv6 serves, while its weights are on the card
+    launches = serve_trained(dev, smi, model, trained, 14, "e", "launches_mesh")
+    del trained, blocks
+    torch.cuda.empty_cache()
+
+    # (d) continued: qwen3-moe's EP layer at full width, one process holding both shards
+    with deterministic(dev):
+        mesh_e = make_mesh(EP_FULL["mesh"], ("data", "model"), device=dev)
+        layer, x, g = ep_inputs(ecfg, EP_FULL["B"], EP_FULL["S"], 0, dev)
+        res, elog = run_ep_layer(ecfg, mesh_e, layer, x, g)
+        del layer
+        ep_same = all(str(sums[f"ep/{k}"]) == digest(t) for k, t in res.items())
+    del res
+    torch.cuda.empty_cache()
+    emit(phase=14, part="d", layer=f"{EP_FULL['arch']} MoE", card=smi, mesh=EP_FULL["mesh"],
+         procs=MESH_PROCS, B=EP_FULL["B"], S=EP_FULL["S"], experts=ecfg.n_experts,
+         top_k=ecfg.top_k, d_model=ecfg.d_model,
+         per_process=[dict(rank=r, ms=lg["ep"]["seconds"] * 1e3,
+                           all_to_all_bytes_sent=lg["ep"]["all_to_all_bytes_sent"],
+                           dropped=lg["ep"]["dropped"],
+                           peak_memory_allocated=lg["ep"].get("peak_memory_allocated"))
+                      for r, lg in enumerate(logs)],
+         one_process=dict(ms=elog["seconds"] * 1e3, dropped=elog["dropped"]),
+         checks=dict(bitwise_one_process=ep_same), seconds=time.perf_counter() - t0)
+    check(ep_same, "14d: the EP layer's gloo ranks != one process holding both shards")
+
+    # (f) the CLI in this process: a straight --mesh 2x2 run, its final
+    # checkpoint moved away, resumed on --mesh 1x2
+    t0 = time.perf_counter()
+    drill = work / "cli"
+    c = MESH_CLI
+    base = ["--arch", c["arch"], "--reduced", "--steps", str(c["steps"]),
+            "--ckpt-every", str(c["ckpt_every"]), "--batch", str(c["batch"]),
+            "--seq", str(c["seq"]), "--log-every", "1", "--ckpt-dir", str(drill / "D1")]
+    final = f"step_{c['steps']:09d}"
+    out = {}
+    for what, extra in (("straight", ["--mesh", c["mesh"]]),
+                        ("resumed", ["--mesh", c["resume_mesh"], "--resume"])):
+        if what == "resumed":
+            (drill / "D2").mkdir()
+            shutil.move(drill / "D1" / final, drill / "D2" / final)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = train_cli.main(base + extra)
+        out[what] = buf.getvalue().splitlines()
+        check(rc == 0, f"14f: the {what} CLI run returned {rc}")
+    resumed = any(f"resumed at step {c['ckpt_every']}" in line for line in out["resumed"])
+    meta = json.loads((drill / "D1" / final / "manifest.json").read_text())
+    worst = 0.0
+    for key, info in meta["keys"].items():
+        if key.startswith("params/"):
+            a = np.load(drill / "D1" / final / "arrays" / info["file"]).astype(np.float64)
+            b = np.load(drill / "D2" / final / "arrays" / info["file"]).astype(np.float64)
+            worst = max(worst, float(np.abs(a - b).max()))
+    emit(phase=14, part="f", card=smi, drill=c, resumed_printed=resumed,
+         max_param_err=worst, tolerance=MESH_CLI_TOL, lines=out,
+         seconds=time.perf_counter() - t0)
+    check(resumed, f"14f: the resumed run did not print 'resumed at step {c['ckpt_every']}'")
+    check(worst <= MESH_CLI_TOL, f"14f: resumed on {c['resume_mesh']} differs from the straight "
+                                 f"run by {worst}")
+    shutil.rmtree(work, ignore_errors=True)
     return launches
 
 
@@ -2966,6 +3370,7 @@ def main() -> int:
     tower_launches = run(11, phase11_towers, dev, smi)
     family_launches = run(12, phase12_families, dev, smi)
     training_launches = run(13, phase13_training, dev, smi)
+    mesh_launches = run(14, phase14_mesh, dev, smi)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -2987,7 +3392,8 @@ def main() -> int:
             **({"launches_families": family_launches[name]}
                if name in FAMILY_KERNELS else {}),
             **({"launches_training": training_launches[name]}
-               if name in TRAIN_KERNELS else {})))
+               if name in TRAIN_KERNELS else {}),
+            **({"launches_mesh": mesh_launches[name]} if name in MESH_KERNELS else {})))
     left = children_left()
     check(not left, f"processes this run started are still running: {left}")
     emit(seconds=time.perf_counter() - t_start, phase_seconds=phase_seconds, card=smi,

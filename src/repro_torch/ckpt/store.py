@@ -12,8 +12,15 @@ as ``jax.tree_util`` names them: a dict's entries in sorted key order, by
 key; a list's or tuple's by index; a NamedTuple's by field name; ``None`` is
 an empty subtree.  So a checkpoint of nested numpy arrays or tensors written
 by either package restores in the other.  Leaves are saved as full logical
-arrays; :func:`restore` places them on ``device`` (the reference re-shards
-them onto a mesh; sharding comes with the port's sharded index).
+arrays.  :func:`restore` places them on ``device``, or, given target
+shardings (``NamedSharding`` trees, as the reference's ``restore`` takes
+them), places this process's block of each leaf under its sharding's mesh
+(``launch.shardings.shard_leaf``): a checkpoint written on one mesh
+restores onto another (``ft.elastic.resume``).  :func:`save` from a mesh
+takes the parameters' and moments' shardings: every process gathers each
+leaf in turn, one leaf at a time, and one process (rank 0, or the only one)
+writes it, so the files are those a one-device save of the same
+parameters writes, byte for byte.
 
 :func:`save_index`/:func:`restore_index` checkpoint a (possibly mutated)
 :class:`~repro_torch.core.index.UGIndex`: the store's arrays under
@@ -38,6 +45,7 @@ from repro_torch.core.index import (
     UGIndex, host_arrays, loaded_config, saved_config, store_from_arrays,
 )
 from repro_torch.kernels.util import resolve_device
+from repro_torch.launch.mesh import is_rank0
 
 _SEP = "/"
 
@@ -122,6 +130,31 @@ def _step_dir(root: pathlib.Path, step: int, tmp: bool = False) -> pathlib.Path:
     return root / (f".tmp_step_{step:09d}" if tmp else f"step_{step:09d}")
 
 
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
+
+
+def _gathered(tree, shardings, prefix: str):
+    """``tree`` with each leaf that has a sharding in ``shardings`` (same
+    structure, a prefix allowed: ``None`` places nothing) replaced by a
+    function that gathers the whole leaf (collective), the others by their
+    leaf."""
+    from repro_torch.launch.shardings import gather_leaf
+
+    shard_of = _flatten(shardings) if shardings is not None else {}
+
+    def leaf(path, t):
+        sh = shard_of.get(path)
+        if sh is None:
+            return t
+        return lambda: gather_leaf(t, sh.mesh, sh.spec)
+
+    return _map(leaf, tree)
+
+
 def save(
     ckpt_dir: str | pathlib.Path,
     step: int,
@@ -131,18 +164,29 @@ def save(
     data_cursor: int = 0,
     extra: dict | None = None,
     keep: int = 3,
+    param_shardings=None,
+    opt_shardings=None,
 ) -> pathlib.Path:
-    """Write one checkpoint; prune old steps beyond ``keep``."""
+    """Write one checkpoint; prune old steps beyond ``keep``.  With
+    shardings (the parameters' blocks held over a mesh), every process
+    calls this: each leaf is gathered in turn and rank 0 writes it."""
     root = pathlib.Path(ckpt_dir)
     out = _step_dir(root, step)
     tmp = _step_dir(root, step, tmp=True)
+    placed = param_shardings is not None or opt_shardings is not None
+    writer = is_rank0() or not placed
+    tree = {"params": _gathered(params, param_shardings, "params")}
+    if opt_state is not None:
+        tree["opt"] = _gathered(opt_state, opt_shardings, "opt")
+    if not writer:
+        for leaf in _flatten(tree).values():
+            if callable(leaf):
+                leaf()
+        _barrier()
+        return out
     if tmp.exists():
         shutil.rmtree(tmp)
     (tmp / "arrays").mkdir(parents=True)
-
-    tree = {"params": params}
-    if opt_state is not None:
-        tree["opt"] = opt_state
     meta = {
         "step": step,
         "data_cursor": data_cursor,
@@ -152,7 +196,7 @@ def save(
     }
     for key, leaf in _flatten(tree).items():
         fname = key.replace(_SEP, "__") + ".npy"
-        dtype, shape = _save_leaf(tmp / "arrays" / fname, leaf)
+        dtype, shape = _save_leaf(tmp / "arrays" / fname, leaf() if callable(leaf) else leaf)
         meta["keys"][key] = {"file": fname, "dtype": dtype, "shape": shape}
     (tmp / "manifest.json").write_text(json.dumps(meta))
     if out.exists():
@@ -162,6 +206,8 @@ def save(
     steps = sorted(p for p in root.glob("step_*") if p.is_dir())
     for old in steps[:-keep]:
         shutil.rmtree(old, ignore_errors=True)
+    if placed:
+        _barrier()
     return out
 
 
@@ -187,28 +233,46 @@ def restore(
     *,
     params_template=None,
     opt_template=None,
+    param_shardings=None,
+    opt_shardings=None,
     device=None,
 ):
-    """Load a checkpoint (the latest step by default).
+    """Load a checkpoint (the latest step by default); optionally re-shard
+    it onto a (possibly new) mesh.
 
-    The templates give the trees' structure; every leaf comes back as a
-    tensor on ``device`` (``None`` = the card), a bfloat16 leaf (either
-    package's) as a ``torch.bfloat16`` tensor.  Returns
-    ``(params, opt_state, meta)``; a tree without a template is ``None``."""
-    dev = resolve_device(device)
+    The templates give the trees' structure; the shardings (same
+    structure, a prefix allowed) give placement: a leaf with a sharding
+    comes back as this process's block under it, on its mesh's device;
+    every other leaf as the whole tensor on ``device`` (``None`` = the
+    card).  A bfloat16 leaf (either package's) comes back as a
+    ``torch.bfloat16`` tensor.  Returns ``(params, opt_state, meta)``; a
+    tree without a template is ``None``."""
+    from repro_torch.launch.shardings import shard_leaf
+
     src, meta = _open(ckpt_dir, step)
+    dev = None
 
-    def rebuild(template, prefix):
+    def rebuild(template, prefix, shardings):
+        nonlocal dev
         if template is None:
             return None
+        shard_of = _flatten(shardings) if shardings is not None else {}
 
         def leaf(path, _):
+            nonlocal dev
             info = meta["keys"][f"{prefix}{_SEP}{path}" if path else prefix]
-            return _load_leaf(src / "arrays" / info["file"], info["dtype"]).to(dev)
+            arr = _load_leaf(src / "arrays" / info["file"], info["dtype"])
+            sh = shard_of.get(path)
+            if sh is not None:
+                return shard_leaf(arr, sh.mesh, sh.spec).to(sh.mesh.device)
+            if dev is None:
+                dev = resolve_device(device)
+            return arr.to(dev)
 
         return _map(leaf, template)
 
-    return rebuild(params_template, "params"), rebuild(opt_template, "opt"), meta
+    return (rebuild(params_template, "params", param_shardings),
+            rebuild(opt_template, "opt", opt_shardings), meta)
 
 
 # ------------------------------------------------------------------ indexes
@@ -270,10 +334,20 @@ class AsyncCheckpointer:
         self._error: Exception | None = None
         self.last_path: pathlib.Path | None = None
 
-    def save(self, step: int, params, opt_state=None, **kw) -> None:
+    def save(self, step: int, params, opt_state=None, *, param_shardings=None,
+             opt_shardings=None, **kw) -> None:
+        """With shardings, every process calls this: the leaves are
+        gathered to the host here, and rank 0 writes them."""
         self.wait()
-        host_params = _map(lambda _, leaf: _host(leaf), params)
-        host_opt = _map(lambda _, leaf: _host(leaf), opt_state)
+
+        def host(_, leaf):
+            return _host(leaf() if callable(leaf) else leaf)
+
+        host_params = _map(host, _gathered(params, param_shardings, "params"))
+        host_opt = _map(host, _gathered(opt_state, opt_shardings, "opt"))
+        if (param_shardings is not None or opt_shardings is not None) and not is_rank0():
+            self.last_path = _step_dir(self.ckpt_dir, step)
+            return
 
         def work():
             try:

@@ -106,6 +106,25 @@ def ring_reduce_scatter(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     return acc
 
 
+def ring_all_reduce(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """All-reduce (sum) along the ring: ``x`` is ``(local, *shape)``; every
+    shard ends with the sum over all shards, as :func:`ring_reduce_scatter`
+    of the flattened arrays in ``size`` chunks (the last zero-padded) and
+    :func:`ring_all_gather` of the sums.  Each chunk is added in the
+    reduce-scatter's order, so the bits do not depend on how many
+    processes hold the shards."""
+    size, local = mesh.size(axis), x.shape[0]
+    n = x[0].numel()
+    pad = (-n) % size
+    flat = torch.nn.functional.pad(x.reshape(local, n), (0, pad)).view(local, size, -1)
+    _, blocks = ring_all_gather(ring_reduce_scatter(flat, mesh, axis), mesh, axis)
+    # blocks[i, t] holds chunk (me_i - t) mod size: put the chunks in order
+    order = torch.stack([torch.tensor([(m - c) % size for c in range(size)])
+                         for m in _me(mesh, axis)]).to(x.device)
+    out = torch.gather(blocks, 1, order[:, :, None].expand(-1, -1, blocks.shape[-1]))
+    return out.reshape(local, -1)[:, :n].reshape(x.shape)
+
+
 def ring_streamed_map(
     blocks: tuple[torch.Tensor, ...],
     mesh: Mesh,

@@ -1,13 +1,15 @@
-"""Elastic rescaling: re-plan the device mesh when devices join or leave.
+"""Elastic rescaling: re-plan the mesh when devices join or leave, and
+restore the latest checkpoint re-sharded onto the new mesh.
 
-The checkpoint format stores full logical arrays (``ckpt/store.py``), so a
-restore is mesh-agnostic; this module only decides the new mesh shape.  The
-reference's ``resume`` (a model's re-sharded restore with its optimizer
-state) comes with the LM towers.
+The checkpoint format stores full logical arrays (``ckpt/store.py``), so the
+restore path is mesh-agnostic — this module only decides the new mesh shape
+and drives the re-sharded restore and the deterministic data-cursor resume.
 """
 from __future__ import annotations
 
 import dataclasses
+
+from repro_torch.ckpt import store
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,3 +71,35 @@ def plan_serve_rescale(
             f"replica of the store")
     dropped = n_devices - replicas * shard_parallel
     return RescalePlan((replicas, shard_parallel), axis_names, dropped)
+
+
+def resume(
+    ckpt_dir,
+    model,
+    opt_template,
+    mesh,
+    *,
+    step: int | None = None,
+):
+    """Restore the latest checkpoint (or ``step``) re-sharded onto ``mesh``.
+
+    Returns ``(params, opt_state, meta)`` with every parameter and moment
+    leaf as this process's block under the model's shardings on ``mesh``
+    (the optimizer's step counter whole, on the mesh's device);
+    ``meta["data_cursor"]`` is the deterministic resume point of the
+    synthetic data (a pure function of (seed, step))."""
+    from repro_torch.train import optim
+
+    pshard = model.shardings(mesh)
+    oshard = None
+    if opt_template is not None:
+        oshard = optim.AdamWState(None, pshard, pshard)
+    return store.restore(
+        ckpt_dir,
+        step,
+        params_template=model.shapes(),
+        opt_template=opt_template,
+        param_shardings=pshard,
+        opt_shardings=oshard,
+        device=mesh.device,
+    )

@@ -74,6 +74,12 @@ class Mesh:
         return [int(np.ravel_multi_index(c, dims)) for c in itertools.product(*ranges)]
 
 
+def is_rank0() -> bool:
+    """Whether this process is rank 0 of the process group, or the only
+    process (no group): the one that prints and writes files."""
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
 def _process_grid(shape: tuple[int, ...], world: int) -> tuple[int, ...]:
     procs, left = [], world
     for s in shape:

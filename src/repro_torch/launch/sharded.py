@@ -1,4 +1,5 @@
-"""The row-sharded index across processes: a launcher and one rank program.
+"""Work across processes: a launcher, and the rank programs of the
+row-sharded index and of the mesh half of training.
 
 :func:`spawn_ranks` starts ``world`` processes with the ``spawn`` method.
 Each joins one ``torch.distributed`` group through a file store, with a time
@@ -17,6 +18,12 @@ known inputs, to ``out_dir/rank{rank}.npz``.  The multi-process tests and
 
     spawn_ranks(rank_program, 2, (inputs_npz, out_dir, params),
                 backend="gloo", init_file=path_under_build_or_tmp)
+
+:func:`train_rank_program` is one rank of the mesh train step
+(:func:`run_mesh_train`) and of the expert-parallel MoE layer
+(:func:`run_ep_layer`); those two functions are what one process holding
+every shard runs too, so the tests and ``chip_smoke.py`` hold the ranks'
+gathered results to one process's bit for bit.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from repro_torch.core.sharded import (
 )
 from repro_torch.distributed import ring_all_gather, ring_reduce_scatter
 from repro_torch.launch.mesh import GROUP_TIMEOUT, make_mesh
+from repro_torch.models.common import tree_leaves
 
 
 def _rank_main(target, rank: int, world: int, backend: str, init_file: str,
@@ -147,3 +155,246 @@ def rank_program(rank: int, world: int, inputs: str, out_dir: str, params: dict)
                 sidx2, q["qv"], q["qi"], q["flags"])
     np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz",
              **{name: t.cpu().numpy() for name, t in out.items()})
+
+
+# ---------------------------------------------------------------------------
+# The mesh half of training
+# ---------------------------------------------------------------------------
+def host_bits(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array of the same bits (bfloat16 as int16)."""
+    t = t.detach().cpu()
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def digest(t: torch.Tensor) -> str:
+    """A fingerprint of a tensor's bits, computed where the tensor lies:
+    its shape, dtype and three wrapping int64 sums over its bits (plain,
+    weighted by position, weighted by a hash of position), so two tensors
+    with the same fingerprint are equal but for a vanishing chance.  Exact
+    integer sums do not depend on their order: the same bits give the
+    same fingerprint on any device."""
+    flat = t.detach().reshape(-1)
+    if flat.dtype.itemsize == 2:
+        bits = flat.view(torch.int16)
+    elif flat.dtype.itemsize == 4:
+        bits = flat.view(torch.int32)
+    else:
+        bits = flat.view(torch.int64) if flat.dtype.itemsize == 8 else flat.to(torch.int64)
+    sums = torch.zeros(3, dtype=torch.int64, device=flat.device)
+    step = 1 << 26
+    for s in range(0, bits.numel(), step):
+        b = bits[s:s + step].to(torch.int64)
+        pos = torch.arange(s, s + b.numel(), dtype=torch.int64, device=b.device)
+        mix = (pos * 0x5851F42D4C957F2D) ^ (pos >> 7)
+        sums += torch.stack([b.sum(), (b * (pos + 1)).sum(), (b * mix).sum()])
+    return f"{tuple(t.shape)} {t.dtype} " + " ".join(f"{int(v):x}" for v in sums.cpu())
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_mesh_train(model, mesh, full, batches: list, opt_kw: dict, *, microbatches: int = 1):
+    """Donated mesh steps of ``model``, one a batch of ``batches``, from the
+    whole parameters ``full`` (each leaf sharded to this process's block).
+    Returns ``(blocks, opt_state, log)``: ``log`` holds each step's loss,
+    ce, aux, grad norm and dropped assignments (MoE), its seconds and the
+    seconds spent in its collectives, and the bytes of the parameter and
+    moment blocks this process holds."""
+    import time
+
+    from repro_torch.launch.shardings import shard_tree
+    from repro_torch.train import AdamWConfig, make_train_step, optim
+
+    blocks = shard_tree(full, mesh, model.specs(mesh))
+    ocfg = AdamWConfig(**opt_kw)
+    opt = optim.init(ocfg, blocks)
+    step = make_train_step(model, ocfg, mesh, microbatches=microbatches, donate=True)
+    step.timing = {}
+    log = dict(loss=[], ce=[], aux=[], grad_norm=[], seconds=[], collective_seconds=[],
+               dropped=[])
+    for batch in batches:
+        step.timing.clear()
+        _sync(mesh.device)
+        t0 = time.perf_counter()
+        blocks, opt, m = step(blocks, opt, batch)
+        loss = float(m["loss"])
+        _sync(mesh.device)
+        log["seconds"].append(time.perf_counter() - t0)
+        log["collective_seconds"].append(sum(step.timing.values()))
+        log["loss"].append(loss)
+        log["grad_norm"].append(float(m["grad_norm"]))
+        for key in ("ce", "aux", "dropped"):
+            if key in m:
+                log[key].append(float(m[key]))
+    log["param_bytes"] = sum(t.numel() * t.element_size() for _, t in tree_leaves(blocks))
+    log["moment_bytes"] = sum(t.numel() * t.element_size() for tree in (opt.m, opt.v)
+                              for _, t in tree_leaves(tree))
+    return blocks, opt, log
+
+
+def run_ep_layer(cfg, mesh, layer, x, g):
+    """The expert-parallel MoE layer under ``shard_ctx.use_mesh(mesh)``:
+    forward of this process's block of ``x`` (the whole (B, S, d) on every
+    process) with its blocks of ``layer`` (the layer's whole leaves), and
+    backward of ``Σ y · g + aux``.  Returns the whole ``y``, ``aux``, the
+    whole input gradient and the layer's whole gradients (gathered), the
+    seconds of the forward and backward, the bytes the all-to-alls sent to
+    other processes and the assignments the per-shard capacity dropped."""
+    import time
+
+    from repro_torch.launch.shardings import gather_leaf, shard_leaf, shard_tree
+    from repro_torch.models import moe, shard_ctx
+    from repro_torch.models.common import P, ParamBuilder, tree_map
+
+    spec_tree = moe.build_moe_params(cfg, ParamBuilder(cfg, "spec", mesh=mesh),
+                                     prefix_layers=False)
+    specs = dict(tree_leaves(spec_tree))
+    dp = tuple(a for a in ("pod", "data") if a in mesh.axes)
+    x_spec = P(dp or None, "model" if "model" in mesh.axes else None, None)
+    p = tree_map(lambda t: t.requires_grad_(True), shard_tree(layer, mesh, spec_tree))
+    blocks = dict(tree_leaves(p))
+    xb = shard_leaf(x, mesh, x_spec).requires_grad_(True)
+    gb = shard_leaf(g, mesh, x_spec)
+    moe.EP_STATS.update(a2a_bytes_sent=0, dropped=0)
+    _sync(mesh.device)
+    t0 = time.perf_counter()
+    with shard_ctx.use_mesh(mesh), torch.enable_grad():
+        y, aux = moe.moe_ffn(cfg, p, xb)
+        loss = torch.sum(y.float() * gb.float()) + aux
+        leaves = [xb] + list(blocks.values())
+        grads = torch.autograd.grad(loss, leaves)
+    _sync(mesh.device)
+    seconds = time.perf_counter() - t0
+    out = dict(y=gather_leaf(y.detach(), mesh, x_spec), aux=aux.detach(),
+               dx=gather_leaf(grads[0], mesh, x_spec))
+    for (path, _), gr in zip(blocks.items(), grads[1:]):
+        out["grad/" + "/".join(path)] = gather_leaf(gr, mesh, specs[path])
+    return out, dict(seconds=seconds, all_to_all_bytes_sent=moe.EP_STATS["a2a_bytes_sent"],
+                     dropped=moe.EP_STATS["dropped"])
+
+
+def train_rank_program(rank: int, world: int, inputs: str | None, out_dir: str,
+                       params: dict) -> None:
+    """One rank of a list of jobs, each :func:`run_mesh_train` or
+    :func:`run_ep_layer`, run in turn.
+
+    ``params``: ``device``, ``threads``, ``save`` (``"arrays"`` or
+    ``"digests"``) and ``jobs``, each a dict with a ``name`` and a ``kind``:
+
+    * ``"train"``: ``arch``, ``reduced``, ``dtype``, ``mesh`` (the ``(data,
+      model)`` shape), ``opt`` (``AdamWConfig`` fields), ``microbatches``,
+      ``steps``; the whole initial parameters from the npz ``inputs``
+      (``<name>/p/<path>``) or ``model.init`` on the device from ``seed``;
+      the batches from the npz (``<name>/b<i>/<key>``) or ``lm_batch`` of
+      ``(vocab, batch, seq)`` at each step;
+    * ``"ep"``: the layer's config (``cfg`` fields, or ``arch`` at full
+      width with one layer), ``dtype``, ``mesh`` as ``(shape, axes)``; the
+      layer, ``x`` and the cotangent ``g`` from the npz (``<name>/ep/<path>``,
+      ``<name>/x``, ``<name>/g``) or drawn on the device from ``seed`` at
+      ``(B, S)``.
+
+    Rank 0 writes every job's gathered results to ``out_dir/rank0.npz``
+    under ``<name>/`` (arrays as their bits, or one sha256 a leaf); every
+    rank writes its logs to ``out_dir/rank{rank}.json``."""
+    import dataclasses
+    import json
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import LMDataConfig, lm_batch
+    from repro_torch.kernels.util import resolve_device
+    from repro_torch.launch.shardings import gather_tree
+    from repro_torch.models import get_model, moe
+    from repro_torch.models.common import ModelConfig, ParamBuilder
+    from repro_torch.train.optim import tree_from_paths
+    from repro_torch.train.step import deterministic
+
+    torch.set_num_threads(params.get("threads") or max(1, (os.cpu_count() or 1) // world))
+    dev = resolve_device(params["device"])
+    data = np.load(inputs) if inputs else {}
+    keys = set(data.keys()) if inputs else set()
+    out, log = {}, {}
+
+    def tensor(name):
+        return torch.as_tensor(data[name]).to(dev)
+
+    def subtree(prefix, template):
+        return tree_from_paths(template, {path: tensor(prefix + "/".join(path))
+                                          for path, _ in tree_leaves(template)})
+
+    with deterministic(dev):
+        for job in params["jobs"]:
+            name = job["name"]
+            dtype = getattr(torch, job.get("dtype", "float32"))
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+            if job["kind"] == "train":
+                spec = get_arch(job["arch"])
+                cfg = dataclasses.replace(spec.reduced if job.get("reduced", True)
+                                          else spec.config, dtype=dtype)
+                model = get_model(cfg)
+                mesh = make_mesh(job["mesh"], ("data", "model"), device=dev)
+                if f"{name}/b0/tokens" in keys:
+                    full = subtree(f"{name}/p/", model.shapes())
+                    batches = [{k: tensor(f"{name}/b{i}/{k}") for k in ("tokens", "labels",
+                                                                         "mask")}
+                               for i in range(job["steps"])]
+                else:
+                    full = model.init(torch.Generator(device=dev).manual_seed(job.get("seed", 0)))
+                    dcfg = LMDataConfig(cfg.vocab, job["batch"], job["seq"])
+                    batches = [lm_batch(dcfg, i, device=dev) for i in range(job["steps"])]
+                blocks, opt, jlog = run_mesh_train(model, mesh, full, batches, job["opt"],
+                                                   microbatches=job.get("microbatches", 1))
+                del full
+                specs = model.specs(mesh)
+                jlog["block_shapes"] = {"/".join(path): list(t.shape)
+                                        for path, t in tree_leaves(blocks)}
+                kinds = (("p", blocks), ("m", opt.m), ("v", opt.v)) if job.get("moments", True) \
+                    else (("p", blocks),)
+                for kind, tree in kinds:
+                    for path, leaf in tree_leaves(gather_tree(tree, mesh, specs)):
+                        out[f"{name}/{kind}/" + "/".join(path)] = leaf
+                del blocks, opt
+            else:
+                if "arch" in job:
+                    cfg = dataclasses.replace(get_arch(job["arch"]).config, n_layers=1)
+                else:
+                    cfg = ModelConfig(**job["cfg"])
+                cfg = dataclasses.replace(cfg, dtype=dtype)
+                shape, axes = job["mesh"]
+                mesh = make_mesh(shape, axes, device=dev)
+                if f"{name}/x" in keys:
+                    layer = subtree(f"{name}/ep/", moe.build_moe_params(
+                        cfg, ParamBuilder(cfg, "shape"), prefix_layers=False))
+                    x, g = tensor(f"{name}/x").to(dtype), tensor(f"{name}/g").to(dtype)
+                else:
+                    layer, x, g = ep_inputs(cfg, job["B"], job["S"], job.get("seed", 0), dev)
+                res, jlog = run_ep_layer(cfg, mesh, layer, x, g)
+                del layer
+                for key, t in res.items():
+                    out[f"{name}/{key}"] = t
+            if dev.type == "cuda":
+                jlog["peak_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+            log[name] = jlog
+    if rank == 0:
+        if params.get("save", "arrays") == "digests":
+            arrays = {k: np.asarray(digest(t)) for k, t in out.items()}
+        else:
+            arrays = {k: host_bits(t) for k, t in out.items()}
+        np.savez(pathlib.Path(out_dir) / "rank0.npz", **arrays)
+    (pathlib.Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(log))
+
+
+def ep_inputs(cfg, B: int, S: int, seed: int, dev):
+    """An MoE layer, a residual ``x`` (B, S, d) and a cotangent ``g`` drawn
+    on ``dev`` from ``seed`` (the same on every process)."""
+    from repro_torch.models import moe
+    from repro_torch.models.common import ParamBuilder
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    layer = moe.build_moe_params(cfg, ParamBuilder(cfg, "init", gen), prefix_layers=False)
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev).to(cfg.dtype)
+    g = torch.randn(x.shape, generator=gen, device=dev).to(cfg.dtype)
+    return layer, x, g

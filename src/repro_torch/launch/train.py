@@ -1,4 +1,5 @@
-"""End-to-end training driver: any ``--arch``, full or reduced, on one device.
+"""End-to-end training driver: any ``--arch``, full or reduced, on one device
+or over a ``--mesh AxB`` (``data=A, model=B``).
 
 Checkpoints every ``--ckpt-every`` steps and at the end
 (``AsyncCheckpointer``, which copies the trees to the host before the next
@@ -9,7 +10,13 @@ and prints the straggler monitor's recommendation beside the logged
 steps.  The steps run in PyTorch's deterministic mode, so a resumed run's
 parameters equal a straight run's bit for bit on the card too.
 
-``--mesh`` waits for the mesh half of training.
+``--mesh AxB`` trains with the mesh step (``train/step.py``): parameters
+and moments held as blocks under the model's shardings.  Without a
+``torch.distributed`` group one process holds every shard; in a gloo group
+(``launch/sharded.py::spawn_ranks`` with ``train_rank_program``, or any
+launcher that initialises one) each rank holds its part, rank 0 prints and
+writes the checkpoints.  ``--resume`` restores through the shardings, onto
+the run's own mesh or onto another (``ft.elastic.resume``).
 
 Example::
 
@@ -33,11 +40,11 @@ import torch  # noqa: E402
 from repro_torch.ckpt import AsyncCheckpointer, latest_step, restore  # noqa: E402
 from repro_torch.configs.registry import get_arch  # noqa: E402
 from repro_torch.data import LMDataConfig, lm_batch  # noqa: E402
-from repro_torch.ft import StepTimer  # noqa: E402
+from repro_torch.ft import StepTimer, resume  # noqa: E402
 from repro_torch.kernels.util import resolve_device  # noqa: E402
+from repro_torch.launch.mesh import is_rank0, make_mesh  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.train import AdamWConfig, make_train_step, optim  # noqa: E402
-from repro_torch.models.common import SLICE_TRAINING  # noqa: E402
 from repro_torch.train.step import deterministic  # noqa: E402
 
 
@@ -59,9 +66,6 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' trains on the CPU)")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(f"--mesh: the mesh train step is not ported yet "
-                                  f"({SLICE_TRAINING})")
 
     dev = resolve_device(args.device)
     spec = get_arch(args.arch)
@@ -74,22 +78,41 @@ def main(argv=None) -> int:
     if cfg.family == "encdec":
         frames_kw = dict(frames_dim=cfg.d_model, frames_len=max(args.seq // 2, 4))
 
+    mesh = shard_kw = None
+    if args.mesh:
+
+        dims = tuple(int(x) for x in args.mesh.split("x"))
+        mesh = make_mesh(dims, ("data", "model")[: len(dims)], device=dev)
+        pshard = model.shardings(mesh)
+        shard_kw = dict(param_shardings=pshard,
+                        opt_shardings=optim.AdamWState(None, pshard, pshard))
+    say = print if is_rank0() else (lambda *a, **k: None)
+
     with deterministic(dev):
         start_step = 0
         params = opt_state = None
         if args.resume and args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
             tmpl_p = model.shapes()
-            params, opt_state, meta = restore(
-                args.ckpt_dir, params_template=tmpl_p, opt_template=optim.init(ocfg, tmpl_p),
-                device=dev)
+            tmpl_o = optim.init(ocfg, tmpl_p)
+            if mesh is not None:
+                params, opt_state, meta = resume(args.ckpt_dir, model, tmpl_o, mesh)
+            else:
+                params, opt_state, meta = restore(args.ckpt_dir, params_template=tmpl_p,
+                                                  opt_template=tmpl_o, device=dev)
             start_step = meta["data_cursor"]
-            print(f"[train] resumed at step {start_step} from {args.ckpt_dir}", flush=True)
+            say(f"[train] resumed at step {start_step} from {args.ckpt_dir}", flush=True)
         if params is None:
             params = model.init(torch.Generator(device=dev).manual_seed(0))
+            if mesh is not None:
+                from repro_torch.launch.shardings import shard_tree
+
+                params = shard_tree(params, mesh, model.specs(mesh))
             opt_state = optim.init(ocfg, params)
 
-        step_fn = make_train_step(model, ocfg, microbatches=args.microbatches, donate=True)
+        step_fn = make_train_step(model, ocfg, mesh, microbatches=args.microbatches,
+                                  donate=True)
         ckpt = AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir else None
+        shard_kw = shard_kw or {}
         timer = StepTimer()
         for step in range(start_step, args.steps):
             batch = lm_batch(dcfg, step, device=dev, **frames_kw)
@@ -100,16 +123,17 @@ def main(argv=None) -> int:
             timer.record(dt)
             if step % args.log_every == 0 or step == args.steps - 1:
                 rec = timer.recommendation()
-                print(f"[train] step {step:5d} loss {loss:.4f} "
+                say(f"[train] step {step:5d} loss {loss:.4f} "
                       f"lr {float(metrics['lr']):.2e} {dt * 1e3:.0f}ms"
                       + (f"  [ft: {rec}]" if rec else ""), flush=True)
             if ckpt and (step + 1) % args.ckpt_every == 0:
-                ckpt.save(step + 1, params, opt_state, data_cursor=step + 1)
+                ckpt.save(step + 1, params, opt_state, data_cursor=step + 1, **shard_kw)
         if ckpt:
-            ckpt.save(args.steps, params, opt_state, data_cursor=args.steps)
+            ckpt.save(args.steps, params, opt_state, data_cursor=args.steps, **shard_kw)
             ckpt.wait()
-            print(f"[train] final checkpoint at {ckpt.last_path}", flush=True)
+            say(f"[train] final checkpoint at {ckpt.last_path}", flush=True)
     return 0
+
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Model API: one surface over the four architecture families.
 
 ``Model`` bundles the family-dispatched functions every launcher needs:
-``init``/``shapes``/``loss``/``forward`` (the train path) and the serve
+``init``/``shapes``/``specs``/``shardings``/``loss``/``forward`` (the
+train path) and the serve
 path ``prefill``/``init_decode_state``/``decode_step``, over the decoder
 (dense and MoE), rwkv6, zamba2 and encdec families.
 """
@@ -13,7 +14,7 @@ from typing import Any
 import torch
 
 from repro_torch.models import encdec, rwkv_model, transformer, zamba
-from repro_torch.models.common import ModelConfig, init_params
+from repro_torch.models.common import ModelConfig, init_params, param_shardings, param_specs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +29,14 @@ class Model:
     def shapes(self) -> Any:
         """The parameter tree as ``meta`` tensors (no memory)."""
         return init_params(self.cfg, mode="shape")
+
+    def specs(self, mesh, rules=None) -> Any:
+        """Each leaf's spec over ``mesh`` (``common.param_specs``)."""
+        return param_specs(self.cfg, mesh, rules)
+
+    def shardings(self, mesh, rules=None) -> Any:
+        """Each leaf's ``NamedSharding`` over ``mesh``."""
+        return param_shardings(self.cfg, mesh, rules)
 
     # ------------------------------------------------------------- train
     def loss(self, params, batch):

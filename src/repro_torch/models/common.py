@@ -8,11 +8,18 @@ one of two modes:
 
 * ``init``  — draw the tensors from an explicit ``torch.Generator`` on its
   device, one leaf at a time (the float32 temporary is one leaf);
-* ``shape`` — ``meta`` tensors: shapes and dtypes, no memory.
+* ``shape`` — ``meta`` tensors: shapes and dtypes, no memory;
+* ``spec``  — each leaf's spec over a mesh: its *logical axes*
+  (``"embed"``, ``"heads"``, ``"mlp"``, ``"vocab"``, ``"expert"``,
+  ``"layers"`` …) resolved to mesh axes by :func:`resolve_spec`, with the
+  reference's divisibility rule — a dimension that does not divide over its
+  mesh axes keeps a dividing prefix of them, else is replicated.
 
-The reference's third mode (``spec``: JAX ``PartitionSpec``s, with
-``param_specs``/``param_shardings``/``batch_spec``) goes with the mesh half
-of training (ROADMAP.md queue 1, item 9, slice 4).
+A spec (:class:`PartitionSpec`) is a tuple with one entry a dimension, as
+JAX's ``PartitionSpec`` holds them: ``None``, an axis name, or a tuple of
+axis names (the dimension split over their product, the first outermost).
+A :class:`NamedSharding` is the pair (mesh, spec);
+``launch/shardings.py`` places a leaf's blocks under one.
 
 :func:`checkpointed` and :func:`remat` are the reference's
 ``jax.checkpoint(..., policy=nothing_saveable)``: a checkpointed call
@@ -22,13 +29,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Sequence
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
-
-SLICE_TRAINING = "ROADMAP.md queue 1, item 9, slice 4"   # the mesh half of training
 
 
 # ---------------------------------------------------------------------------
@@ -141,26 +146,118 @@ def tree_map(fn, tree):
 
 
 # ---------------------------------------------------------------------------
+# Logical-axis resolution
+# ---------------------------------------------------------------------------
+DEFAULT_RULES: dict[str, tuple[str, ...]] = {
+    "batch": ("pod", "data"),
+    "vocab": ("model",),
+    "embed": ("pod", "data"),        # FSDP shard of the contraction dim
+    "heads": ("model",),
+    "kv_heads": ("model",),
+    "mlp": ("model",),
+    "expert": ("model",),
+    "layers": (),
+    "seq": (),
+    "state": (),
+    "rank": (),
+    "hd": (),
+}
+
+
+def mesh_shape(mesh) -> dict[str, int]:
+    """``{axis: shards}`` of a mesh (the port's :class:`~repro_torch.launch.
+    mesh.Mesh`, or anything with ``axes`` and ``shape``)."""
+    return dict(zip(mesh.axes, mesh.shape))
+
+
+def resolve_axis(logical: str | None, dim: int, mesh_shape: Mapping[str, int],
+                 rules: Mapping[str, tuple[str, ...]]) -> tuple[str, ...] | None:
+    """Map one logical axis to mesh axes, dropping non-divisible shards."""
+    if logical is None:
+        return None
+    axes = tuple(a for a in rules.get(logical, ()) if a in mesh_shape)
+    if not axes:
+        return None
+    if dim % math.prod(mesh_shape[a] for a in axes) == 0:
+        return axes
+    # try a prefix that divides (keeps at least partial sharding)
+    for cut in range(len(axes) - 1, 0, -1):
+        if dim % math.prod(mesh_shape[a] for a in axes[:cut]) == 0:
+            return axes[:cut]
+    return None
+
+
+class PartitionSpec(tuple):
+    """A leaf's spec, one entry a dimension: ``None``, an axis name, or a
+    tuple of axis names; a one-name tuple is that name, as in JAX.  A tuple
+    subclass, so that a tree of specs tells a spec from a tuple of specs."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (e[0] if isinstance(e, tuple) and len(e) == 1 else e
+                                     for e in entries))
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+def resolve_spec(shape: Sequence[int], axes: Sequence[str | None],
+                 mesh_shape: Mapping[str, int], rules: Mapping[str, tuple[str, ...]]) -> P:
+    """One leaf's spec: each dimension's mesh axes, a mesh axis used once."""
+    if len(shape) != len(axes):
+        raise ValueError(f"shape {tuple(shape)} and logical axes {tuple(axes)} differ in length")
+    used: set[str] = set()
+    out = []
+    for dim, ax in zip(shape, axes):
+        r = resolve_axis(ax, dim, mesh_shape, rules)
+        if r is None or any(a in used for a in r):
+            out.append(None)
+        else:
+            used.update(r)
+            out.append(r)
+    return P(*out)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class NamedSharding:
+    """A leaf's placement: the spec's blocks over ``mesh``'s shards."""
+
+    mesh: Any
+    spec: PartitionSpec
+
+
+# ---------------------------------------------------------------------------
 # Parameter builder
 # ---------------------------------------------------------------------------
 class ParamBuilder:
-    """Makes one leaf per call; see the module docstring.  ``axes`` (the
-    reference's logical axes, which its ``spec`` mode reads) are taken and
-    unused, so the builders read as the reference's."""
+    """Makes one leaf per call; see the module docstring.  ``axes`` are the
+    leaf's logical axes, which the ``spec`` mode resolves over ``mesh``
+    (``rules`` update :data:`DEFAULT_RULES`)."""
 
-    def __init__(self, cfg: ModelConfig, mode: str, generator: torch.Generator | None = None):
-        if mode not in ("init", "shape"):
-            raise ValueError(f"ParamBuilder mode {mode!r}: 'init' or 'shape' "
-                             f"('spec' waits for {SLICE_TRAINING})")
+    def __init__(self, cfg: ModelConfig, mode: str, generator: torch.Generator | None = None,
+                 mesh=None, rules: Mapping[str, tuple[str, ...]] | None = None):
+        if mode not in ("init", "shape", "spec"):
+            raise ValueError(f"ParamBuilder mode {mode!r}: 'init', 'shape' or 'spec'")
         if mode == "init" and generator is None:
             raise ValueError("ParamBuilder mode 'init' needs a torch.Generator")
+        if mode == "spec" and mesh is None:
+            raise ValueError("ParamBuilder mode 'spec' needs a mesh")
         self.cfg = cfg
         self.mode = mode
         self.generator = generator
+        self.mesh = mesh
+        self.rules = {**DEFAULT_RULES, **(rules or {})}
 
     def __call__(self, shape: Sequence[int], axes: Sequence[str | None],
-                 init: str = "normal", scale: float | None = None) -> torch.Tensor:
+                 init: str = "normal", scale: float | None = None):
         shape = tuple(int(s) for s in shape)
+        if self.mode == "spec":
+            return resolve_spec(shape, axes, mesh_shape(self.mesh), self.rules)
         dtype = self.cfg.dtype
         if self.mode == "shape":
             return torch.empty(shape, dtype=dtype, device="meta")
@@ -175,11 +272,12 @@ class ParamBuilder:
         return w.mul_(s).to(dtype)
 
 
-def init_params(cfg: ModelConfig, mode: str = "init", generator: torch.Generator | None = None):
+def init_params(cfg: ModelConfig, mode: str = "init", generator: torch.Generator | None = None,
+                mesh=None, rules=None):
     """Dispatch to the family-specific parameter builder."""
     from repro_torch.models import encdec, ssm, transformer, zamba
 
-    b = ParamBuilder(cfg, mode, generator)
+    b = ParamBuilder(cfg, mode, generator, mesh=mesh, rules=rules)
     if cfg.family == "decoder":
         return transformer.build_params(cfg, b)
     if cfg.family == "encdec":
@@ -189,6 +287,22 @@ def init_params(cfg: ModelConfig, mode: str = "init", generator: torch.Generator
     if cfg.family == "zamba2":
         return zamba.build_params(cfg, b)
     raise ValueError(f"unknown family {cfg.family}")
+
+
+def param_specs(cfg: ModelConfig, mesh, rules=None):
+    """The parameter tree's specs over ``mesh`` (a tuple a leaf)."""
+    return init_params(cfg, mode="spec", mesh=mesh, rules=rules)
+
+
+def param_shardings(cfg: ModelConfig, mesh, rules=None):
+    """The parameter tree's :class:`NamedSharding` a leaf."""
+    return tree_map(lambda s: NamedSharding(mesh, s), param_specs(cfg, mesh, rules))
+
+
+def batch_spec(mesh) -> P:
+    """A batch's spec: dim 0 over the data axes (``pod`` and ``data``)."""
+    axes = tuple(a for a in ("pod", "data") if a in mesh.axes)
+    return P(axes if axes else None)
 
 
 def params_from_numpy(cfg: ModelConfig, tree, device=None):

@@ -85,14 +85,29 @@ def global_norm(tree) -> torch.Tensor:
     reference's own init at full width gives gradients that overflow it:
     ROADMAP, "Reference quirks"."""
     leaves = [leaf.detach().contiguous() for _, leaf in tree_leaves(tree)]
-    amax = torch.stack([s.abs().amax().float() for leaf in leaves
+    inv, back = pow2_scale(abs_max(leaves))
+    sq = sum(sum_squares(leaf, inv) for leaf in leaves)
+    return torch.sqrt(sq) * back
+
+
+def abs_max(leaves) -> torch.Tensor:
+    """The largest ``|x|`` over contiguous tensors, in float32."""
+    return torch.stack([s.abs().amax().float() for leaf in leaves
                         for s in _slices(leaf)]).amax()
+
+
+def pow2_scale(amax: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(2^-k, 2^k)``, ``2^k`` the power of two at or above ``amax`` (1
+    where ``amax`` is 0 or not finite): :func:`global_norm`'s scaling."""
     ok = torch.isfinite(amax) & (amax > 0)
     k = torch.where(ok, torch.ceil(torch.log2(torch.where(ok, amax, 1.0))), 0.0)
-    inv, back = torch.exp2(-k), torch.exp2(k)
-    sq = sum(sum(torch.sum(torch.square(s.float() * inv)) for s in _slices(leaf))
-             for leaf in leaves)
-    return torch.sqrt(sq) * back
+    return torch.exp2(-k), torch.exp2(k)
+
+
+def sum_squares(t: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """``Σ (t · inv)²`` of a contiguous tensor in float32, added a slice of
+    :data:`SLICE_ELEMENTS` at a time."""
+    return sum(torch.sum(torch.square(s.float() * inv)) for s in _slices(t))
 
 
 def tree_from_paths(template, by_path: dict, path: tuple = ()):
@@ -113,14 +128,20 @@ def _slices(t: torch.Tensor):
 
 
 @torch.no_grad()
-def update(cfg: AdamWConfig, state: AdamWState, params, grads, *, inplace: bool = False):
+def update(cfg: AdamWConfig, state: AdamWState, params, grads, *, inplace: bool = False,
+           gnorm: torch.Tensor | None = None):
     """One AdamW step (float32 math, moments stored at ``state_dtype``).
 
     Returns ``(new_params, new_state, {"grad_norm", "lr"})``.  ``inplace``
     writes the new parameters and moments into the given tensors and
     returns the same trees (the caller must not keep the old values, as
-    under JAX's donation); otherwise new tensors are returned."""
-    gnorm = global_norm(grads)
+    under JAX's donation); otherwise new tensors are returned.  ``gnorm``
+    is the gradients' global norm when the caller has it (the mesh step,
+    whose ``grads`` are this process's blocks); by default
+    :func:`global_norm` of ``grads``.  The update is elementwise, so blocks
+    of the leaves update as the whole leaves would."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = (torch.clamp_max(cfg.grad_clip / torch.clamp_min(gnorm, 1e-9), 1.0)
              if cfg.grad_clip else 1.0)
     step = state.step + 1

@@ -1,10 +1,40 @@
-"""Train-step factory: loss → grads → AdamW, with microbatch accumulation.
+"""Train-step factory: loss → grads → AdamW, with microbatch accumulation,
+on one device or over a ``(data, model)`` mesh.
 
-``make_train_step`` is the reference's single-device path
-(``mesh=None``): gradients come from ``torch.autograd.grad`` over
-detached views of the parameter leaves that require grad, so nothing
-accumulates into ``.grad``.  The mesh path (shardings, the compressed data-parallel
-exchange) waits for ``models.common.SLICE_TRAINING`` (item 9's slice 4).
+Gradients come from ``torch.autograd.grad`` over detached views of the
+parameter leaves that require grad, so nothing accumulates into ``.grad``.
+
+**The mesh step** (``mesh=``) computes the one-device step's function, as
+the reference's partitioned step does (its XLA partitioner keeps the global
+semantics), up to the order of float sums:
+
+* each parameter leaf and its two moments are held as this process's block
+  under the leaf's spec (``Model.specs(mesh)``; ``launch/shardings.py``):
+  ``embed`` over the data axes (FSDP), heads/mlp/vocab/expert over
+  ``model``;
+* a step gathers the whole parameters, splits the global batch into
+  microbatches and each microbatch over the data shards (dim 0), and runs
+  each of this process's data shards as its own forward and backward — so
+  a shard computes the same bits whichever process holds it, and 1, 2 or 4
+  processes give the same result;
+* the loss stays global: a shard's cross-entropy is rescaled from its own
+  mask count to the microbatch's (``Σ mask`` over the whole batch), and an
+  MoE layer dispatches each shard's tokens as part of one global dispatch
+  (``moe.data_shard``: capacity from the microbatch's token count, the
+  ranks after the shards before it, the aux from the global means; the
+  shards of one process run in threads, in step at each MoE layer's count
+  exchange);
+* the gradients are summed over the data shards with the ring
+  collectives (``launch.shardings.reduce_blocks``: a reduce-scatter over
+  the leaf's data sub-dimension, an all-reduce for a leaf not split over
+  the data axes), in float32, and each process keeps its block;
+* the global norm is summed over the leaves' shard cells in a fixed order,
+  and AdamW updates the blocks.
+
+Along ``model`` the port splits storage and not compute: the processes of
+one data shard compute the same rows with the whole parameters.  XLA
+splits the products there; PyTorch has no partitioner that does, and
+tensor parallelism is later work (ROADMAP).
 
 Determinism.  The backward passes hold float scatter-adds (the embedding
 lookup's, the MoE dispatch's and combine's), which run as atomics on the
@@ -16,12 +46,16 @@ turns it on for a block; the training entry points (``launch/train.py``,
 from __future__ import annotations
 
 import contextlib
+import itertools
+import math
 import os
+import threading
 
 import torch
 
+from repro_torch.models import moe
 from repro_torch.models.api import Model
-from repro_torch.models.common import SLICE_TRAINING, tree_leaves, tree_map
+from repro_torch.models.common import P, tree_leaves, tree_map
 from repro_torch.train import optim
 
 CUBLAS_WORKSPACE = ":4096:8"   # the cuBLAS workspace deterministic mode needs
@@ -79,7 +113,7 @@ def make_train_step(model: Model, opt_cfg: optim.AdamWConfig, mesh=None, *,
     place and returns the same trees: the caller must not reuse the old
     ones (JAX's donation contract)."""
     if mesh is not None:
-        raise NotImplementedError(f"the mesh train step is not ported yet ({SLICE_TRAINING})")
+        return _MeshStep(model, opt_cfg, mesh, microbatches, donate)
 
     def step_fn(params, opt_state, batch):
         if microbatches > 1:
@@ -116,7 +150,8 @@ def make_train_step(model: Model, opt_cfg: optim.AdamWConfig, mesh=None, *,
 def make_eval_step(model: Model, mesh=None):
     """Returns ``(params, batch) -> {"loss", **metrics}`` (no gradients)."""
     if mesh is not None:
-        raise NotImplementedError(f"the mesh eval step is not ported yet ({SLICE_TRAINING})")
+        mesh_step = _MeshStep(model, None, mesh, 1, False)
+        return torch.no_grad()(mesh_step.evaluate)
 
     @torch.no_grad()
     def eval_fn(params, batch):
@@ -125,3 +160,254 @@ def make_eval_step(model: Model, mesh=None):
         return {"loss": loss, **{k: _scalar(v, dev) for k, v in metrics.items()}}
 
     return eval_fn
+
+
+# ---------------------------------------------------------------------------
+# The mesh step
+# ---------------------------------------------------------------------------
+class _Exchange:
+    """The MoE layers' count exchange for this process's data shards: each
+    shard's thread hands in its ``(2, E)`` counts; they are all-gathered
+    over the data axes once every local shard has handed its in, and each
+    thread gets every shard's, ``(n, 2, E)`` in shard order."""
+
+    def __init__(self, mesh, dp_axes, local_grid, timeout: float):
+        self.mesh, self.dp_axes, self.grid = mesh, dp_axes, list(local_grid)
+        self.n_local = math.prod(local_grid)
+        self.barrier = threading.Barrier(self.n_local, timeout=timeout)
+        self.slots = [None] * self.n_local
+        self.out = None
+
+    def _wait(self) -> None:
+        if self.n_local > 1:
+            self.barrier.wait()
+
+    def __call__(self, q: int, counts: torch.Tensor) -> torch.Tensor:
+        from repro_torch.launch.shardings import gather_leaf
+
+        self.slots[q] = counts
+        self._wait()
+        if q == 0:
+            mine = torch.stack(self.slots).reshape(self.grid + list(counts.shape))
+            every = gather_leaf(mine, self.mesh, P(*self.dp_axes))
+            self.out = every.reshape((-1,) + tuple(counts.shape))
+        self._wait()
+        out = self.out
+        self._wait()             # every thread has read before the next call writes
+        return out
+
+
+def _in_threads(fns: list, barrier: threading.Barrier) -> list:
+    """``[f() for f in fns]``, each in a thread of its own (inline for one);
+    an error aborts ``barrier`` (so the other threads stop waiting at it)
+    and the first error is raised after every thread has ended."""
+    if len(fns) == 1:
+        return [fns[0]()]
+    out, errors = [None] * len(fns), []
+
+    def run(i):
+        try:
+            out[i] = fns[i]()
+        except BaseException as e:  # noqa: BLE001  (re-raised below)
+            errors.append(e)
+            barrier.abort()
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(fns))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+class _MeshStep:
+    """The mesh train step (see the module docstring); also its eval."""
+
+    def __init__(self, model: Model, opt_cfg, mesh, microbatches: int, donate: bool):
+        from repro_torch.launch.mesh import GROUP_TIMEOUT, Mesh
+
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a repro_torch.launch.mesh.Mesh, not {type(mesh)}")
+        self.model, self.cfg, self.opt_cfg = model, model.cfg, opt_cfg
+        self.mesh, self.microbatches, self.donate = mesh, microbatches, donate
+        self.specs = model.specs(mesh)
+        self.spec_of = dict(tree_leaves(self.specs))
+        self.dp_axes = tuple(a for a in ("pod", "data") if a in mesh.axes)
+        self.n_data = math.prod(mesh.size(a) for a in self.dp_axes)
+        self.grid = [mesh.local(a) for a in self.dp_axes]
+        self.shards = mesh.local_shards(self.dp_axes) if self.dp_axes else [0]
+        self.timeout = GROUP_TIMEOUT.total_seconds()
+        # a dict here collects each step's seconds in its collective phases
+        # (the parameters' gather, the gradients' reduce and the norm),
+        # each synchronised with the device; None records nothing
+        self.timing = None
+
+    @contextlib.contextmanager
+    def _timed(self, name: str):
+        if self.timing is None:
+            yield
+            return
+        import time
+
+        sync = self.mesh.device.type == "cuda"
+        if sync:
+            torch.cuda.synchronize(self.mesh.device)
+        t0 = time.perf_counter()
+        yield
+        if sync:
+            torch.cuda.synchronize(self.mesh.device)
+        self.timing[name] = self.timing.get(name, 0.0) + time.perf_counter() - t0
+
+    # ----------------------------------------------------------- shards
+    def _rows(self, batch: dict, m: int) -> tuple[dict, int, int]:
+        """Microbatch ``m`` of the global batch, its rows a data shard."""
+        B = batch["tokens"].shape[0]
+        if B % (self.microbatches * self.n_data):
+            raise ValueError(f"batch {B} does not split into {self.microbatches} microbatches "
+                             f"of {self.n_data} data shards")
+        mb = B // self.microbatches
+        return ({k: v[m * mb:(m + 1) * mb] for k, v in batch.items()}, mb,
+                mb // self.n_data)
+
+    def _run_shards(self, full, mb: dict, rows: int, grads: bool) -> list:
+        """Each of this process's data shards of one microbatch:
+        ``(shard loss, ce part, aux part, dropped, grads | None)``."""
+        denom = torch.clamp_min(torch.sum(mb["mask"]), 1.0)
+        tokens = mb["tokens"].numel()
+        exchange = _Exchange(self.mesh, self.dp_axes, self.grid, self.timeout) \
+            if self.cfg.moe else None
+        paths = [path for path, _ in tree_leaves(full)]
+
+        def shard(q: int):
+            g = self.shards[q]
+            sb = {k: v[g * rows:(g + 1) * rows] for k, v in mb.items()}
+            ctx = (moe.data_shard(moe.DataShard(g, self.n_data, tokens,
+                                                lambda t: exchange(q, t)))
+                   if exchange is not None else contextlib.nullcontext())
+            with ctx as ds, torch.set_grad_enabled(grads):
+                live = tree_map(lambda p: p.detach().requires_grad_(grads), full)
+                _, metrics = self.model.loss(live, sb)
+                ce = metrics["ce"] * (torch.clamp_min(torch.sum(sb["mask"]), 1.0) / denom)
+                aux = torch.as_tensor(metrics["aux"], dtype=torch.float32, device=ce.device)
+                loss = ce + aux
+                g_out = None
+                if grads:
+                    leaves = [leaf for _, leaf in tree_leaves(live)]
+                    g_out = dict(zip(paths, torch.autograd.grad(
+                        loss, leaves, allow_unused=True, materialize_grads=True)))
+            dropped = sum(int(t) for t in ds.dropped) if ds is not None else 0
+            return loss.detach(), ce.detach(), aux.detach(), dropped, g_out
+
+        fns = [lambda q=q: shard(q) for q in range(len(self.shards))]
+        if exchange is None:
+            return [f() for f in fns]
+        try:
+            return _in_threads(fns, exchange.barrier)
+        finally:
+            moe.forget_calls()
+
+    def _sum_over_shards(self, per_shard: list) -> list[torch.Tensor]:
+        """Scalars a local shard (``[(a, b, ...)]``) summed over every data
+        shard, in shard order."""
+        from repro_torch.launch.shardings import gather_leaf
+
+        mine = torch.stack([torch.stack([torch.as_tensor(v, dtype=torch.float32,
+                                                         device=self.mesh.device)
+                                         for v in row]) for row in per_shard])
+        every = gather_leaf(mine.reshape(self.grid + [mine.shape[-1]]), self.mesh,
+                            P(*self.dp_axes)).reshape(-1, mine.shape[-1])
+        return list(every.sum(dim=0))
+
+    # ------------------------------------------------------------- norm
+    def _global_norm(self, blocks: dict) -> torch.Tensor:
+        """``optim.global_norm`` of the whole gradients from this process's
+        blocks: the power-of-two scale from the global largest ``|g|``,
+        each leaf's sum of squares taken a shard cell at a time (the cells
+        of its spec's axes), every cell's sum all-reduced, and the cells
+        added in (leaf, cell) order — the same bits however the processes
+        hold the cells."""
+        from repro_torch.distributed.collectives import all_reduce_max
+        from repro_torch.launch.shardings import expanded
+
+        mesh = self.mesh
+        amax = optim.abs_max(blocks.values())
+        for a in mesh.axes:
+            amax = all_reduce_max(amax, mesh, a)
+        inv, back = optim.pow2_scale(amax)
+        cells = []
+        for path in sorted(blocks):
+            g, spec = blocks[path], self.spec_of[path]
+            exp, pos = expanded(g.shape, mesh, spec, mesh.local)
+            axes = sorted(pos, key=pos.get)
+            t = g.reshape(exp)
+            sums = torch.full((math.prod(mesh.size(a) for a in axes),), -1.0,
+                              dtype=torch.float32, device=g.device)
+            for local in itertools.product(*(range(mesh.local(a)) for a in axes)):
+                cell = t
+                for a, i in sorted(zip(axes, local), key=lambda ai: -pos[ai[0]]):
+                    cell = cell.select(pos[a], i)
+                gid = 0
+                for a, i in zip(axes, local):
+                    gid = gid * mesh.size(a) + mesh.start(a) + i
+                sums[gid] = optim.sum_squares(cell.contiguous(), inv)
+            cells.append(sums)
+        every = torch.cat(cells)
+        for a in mesh.axes:              # a cell this process does not hold is -1
+            every = all_reduce_max(every, mesh, a)
+        return torch.sqrt(torch.sum(every)) * back
+
+    # ------------------------------------------------------------- step
+    def __call__(self, params, opt_state, batch):
+        from repro_torch.launch.shardings import gather_tree, reduce_blocks
+
+        with self._timed("gather_s"):
+            full = gather_tree(params, self.mesh, self.specs)
+        acc: list[dict] = [dict() for _ in self.shards]
+        sums, dropped = [], [0] * len(self.shards)
+        for m in range(self.microbatches):
+            mb, _, rows = self._rows(batch, m)
+            out = self._run_shards(full, mb, rows, grads=True)
+            for q, (loss, ce, aux, drop, g) in enumerate(out):
+                for path, gl in g.items():
+                    if path in acc[q]:
+                        acc[q][path].add_(gl)
+                    else:
+                        acc[q][path] = gl.float()
+                dropped[q] += drop
+            sums.append(self._sum_over_shards([o[:3] for o in out]))
+            del out
+        del full
+        blocks = {}
+        with self._timed("reduce_s"):
+            for path, spec in self.spec_of.items():
+                contribs = torch.stack([a.pop(path) for a in acc])
+                g = reduce_blocks(contribs.reshape(self.grid + list(contribs.shape[1:])),
+                                  self.mesh, spec, self.dp_axes)
+                blocks[path] = g.div_(self.microbatches) if self.microbatches > 1 else g
+                del contribs
+            gnorm = self._global_norm(blocks)
+        grads = optim.tree_from_paths(params, blocks)
+        new_params, new_opt, stats = optim.update(self.opt_cfg, opt_state, params, grads,
+                                                  inplace=self.donate, gnorm=gnorm)
+        del grads, blocks
+        if self.microbatches > 1:
+            loss = sums[0][0]
+            for s in sums[1:]:
+                loss = loss + s[0]
+            metrics = {"loss": loss / self.microbatches}
+        else:
+            metrics = {"loss": sums[0][0], "ce": sums[0][1], "aux": sums[0][2]}
+        if self.cfg.moe:             # the assignments the global dispatch dropped
+            metrics["dropped"] = self._sum_over_shards([(d,) for d in dropped])[0]
+        return new_params, new_opt, {**metrics, **stats}
+
+    def evaluate(self, params, batch) -> dict:
+        from repro_torch.launch.shardings import gather_tree
+
+        full = gather_tree(params, self.mesh, self.specs)
+        mb, _, rows = self._rows(batch, 0)
+        out = self._run_shards(full, mb, rows, grads=False)
+        loss, ce, aux = self._sum_over_shards([o[:3] for o in out])
+        return {"loss": loss, "ce": ce, "aux": aux}

@@ -24,8 +24,9 @@ reference, on the CPU, in float32 (and bf16 leaves for the optimizer).
   reference trains and saves, the port restores and trains on, against
   the reference's own continuation; the port saves, the reference
   restores with its templates); ``launch/train.main`` with ``--resume``.
-* ``bench_lm_steps`` gives the reference's row names; a mesh raises,
-  naming item 9's slice 4.
+* ``bench_lm_steps`` gives the reference's row names; the mesh step
+  (item 9's slice 4, ``tests/test_torch_mesh_train.py``) refuses what is
+  not a mesh, and ``--mesh`` trains.
 """
 import json
 import shutil
@@ -379,9 +380,11 @@ def test_bench_lm_steps_rows_match_reference(monkeypatch):
 
 
 def test_mesh_raises_naming_slice_4():
-    with pytest.raises(NotImplementedError, match="item 9, slice 4"):
+    """The mesh step came with item 9's slice 4: it refuses an object that
+    is not a ``launch.mesh.Mesh``, and the CLI's ``--mesh`` trains."""
+    with pytest.raises(TypeError, match="Mesh"):
         make_train_step(tiny_model(), AdamWConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 9, slice 4"):
+    with pytest.raises(TypeError, match="Mesh"):
         make_eval_step(tiny_model(), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 9, slice 4"):
-        train_cli.main(["--arch", "qwen3-32b", "--reduced", "--mesh", "2x2", "--device", "cpu"])
+    assert train_cli.main(["--arch", "qwen3-32b", "--reduced", "--mesh", "2x2", "--steps", "1",
+                           "--batch", "4", "--seq", "8", "--device", "cpu"]) == 0
