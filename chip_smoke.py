@@ -237,7 +237,7 @@ the script exits non-zero without printing a result):
    gradient through the log decay is float32 noise, see
    ``tests/test_torch_grads_recurrent.py``); (b) two 6-step runs of
    reduced qwen1.5-4b, qwen3-moe, rwkv6 and zamba2 bitwise equal; the CLI
-   drill in subprocesses: ``launch.train --arch qwen3-moe-235b-a22b
+   drill (``launch.train.main`` in this process): ``--arch qwen3-moe-235b-a22b
    --reduced --steps 6 --ckpt-every 3 --batch 4 --seq 32 --ckpt-dir D1``,
    its final checkpoint moved to ``D2`` (what is left is a run preempted
    after step 3 of a 6-step schedule), then the same with ``--resume``,
@@ -304,7 +304,24 @@ the script exits non-zero without printing a result):
    the kernels line; (f) ``launch.train.main`` in this process: reduced
    qwen3-moe ``--mesh 2x2 --steps 6 --ckpt-every 3``, its final
    checkpoint moved away, then ``--resume --mesh 1x2``: ``resumed at step
-   3``, the final parameters within 1e-5 of the straight run's.
+   3``, the final parameters within 1e-5 of the straight run's;
+15. the dry-run (``launch/dryrun.py``, ``hlo_analysis.py``, ``roofline.py``):
+   (a) ``python -m repro_torch.launch.dryrun --mesh single`` in three
+   subprocesses side by side, for qwen1.5-4b ``train_4k``, qwen3-moe
+   ``decode_32k`` (both counted on ``meta`` as one card of the 16×16 mesh
+   runs them) and ``--index-cell`` (one real step of one shard on the
+   card); each exits 0 and its record and roofline row are printed;
+   (b) 13(c)'s cell (qwen1.5-4b whole, B = 4, S = 512) counted on a (1, 1)
+   mesh: its compute, memory and collective terms beside 13(c)'s measured
+   median step and peak memory (the stand-in for a compiler's temp
+   bytes), the bound's and 6 N D's fractions of the measured step;
+   (c) the plan's collective bytes a process for 14(d)'s rwkv6 (2, 1)
+   step, equal to what each rank's collectives counted, beside 14(d)'s
+   measured collective seconds (an achieved GB/s); (d) the index cell's
+   step on the card, launches counted from 0 (``launches_dryrun`` in the
+   kernels line, each above 0), its tally equal to the plain versions'
+   on the CPU on the same inputs and its ids and distances bitwise
+   theirs (the two kernels' results at the cell's d = 768).
 
 Before the last lines the script checks that no process it started (the
 compiler, the spawned ranks, multiprocessing's resource tracker) is still
@@ -430,7 +447,7 @@ GRAD_TOL = {"dense": 1e-4, "moe_or_recurrent": 1e-3}
 DETERMINISM_ARCHS = ("qwen1.5-4b", "qwen3-moe-235b-a22b", "rwkv6-1.6b", "zamba2-2.7b")  # (b)
 DETERMINISM = dict(steps=6, batch=4, seq=32)                      # (b)
 CLI_DRILL = dict(arch="qwen3-moe-235b-a22b", steps=6, ckpt_every=3, batch=4, seq=32)  # (b)
-CLI_TIMEOUT = 300              # (b), (g): seconds a training subprocess may take
+CLI_TIMEOUT = 300              # (g): seconds a training subprocess may take
 LEARN = dict(arch="qwen1.5-4b", steps=30, batch=4, seq=32, seed=31)          # (b)
 # (b): the loss after LEARN's 30 steps must be below this bar.  A CPU run of the
 # port (same config, weights, batch and schedule) fell 6.9734 -> 3.9858; the bar
@@ -485,6 +502,13 @@ MESH_CLI = dict(arch="qwen3-moe-235b-a22b", steps=6, ckpt_every=3, batch=4, seq=
 MESH_CLI_TOL = 1e-5
 MESH_SPAWN_TIMEOUT = 300       # (c), (d): seconds the spawned ranks may take
 MESH_KERNELS = ("expand_score", "beam_merge", "prune_sweep")         # (e)'s path
+# phase 15: the dry-run's cells, its tally and the roofline beside measured steps
+DRYRUN_CELLS = (("qwen1.5-4b", "train_4k"), ("qwen3-moe-235b-a22b", "decode_32k"),
+                (None, "index"))                  # (a): --mesh single; None: --index-cell
+DRYRUN_TIMEOUT = 120           # (a): seconds the three dry-run subprocesses may take
+DRYRUN_KERNELS = ("expand_score", "beam_merge")   # (d)'s path: the index cell's step
+# phases 13(c) and 14(d) leave their measured numbers here for phase 15
+MEASURED = {}
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 PEAK_TF32_PER_S = 495e12       # H100 SXM TF32 on the tensor cores, dense
@@ -593,6 +617,28 @@ def bound(nbytes: float, ops: float, peak: float = PEAK_FP32_PER_S) -> tuple[flo
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def product_bounds(cost, bf16_bytes: int) -> dict:
+    """The bounds of a product kernel from its float32 cost in
+    ``kernels/ops.py``: ``bound_ms`` the tightest the card allows an
+    fp32-accurate product (3xTF32 on the tensor cores: three products), the
+    fp32 SIMT bound (with the other operations) and the bf16 entry's
+    (``bf16_bytes`` moved) beside it."""
+    flops, other, nbytes = cost[:3]
+    tc = bound(nbytes, 3 * flops, PEAK_TF32_PER_S)
+    simt = bound(nbytes, flops + other)
+    bf = bound(bf16_bytes, flops, PEAK_BF16_PER_S)
+    return dict(bound_ms=tc[0], bound_by=tc[1], bound_simt_ms=simt[0], bound_simt_by=simt[1],
+                bf16_bound_ms=bf[0], bf16_bound_by=bf[1])
+
+
+def kernel_bound(cost) -> tuple[float, str]:
+    """:func:`bound` of a kernel without products from its cost in
+    ``kernels/ops.py`` (``(product FLOPs, other operations, bytes, ...)``):
+    its operations on the fp32 units."""
+    check(cost[0] == 0, "kernel_bound: the kernel has products; give their rate")
+    return bound(cost[2], cost[1])
+
+
 def l2dist_within_bound(got, want, q, x, what: str) -> dict:
     """Check ``|kernel − plain| ≤ (d + 4)·2⁻²³·(‖q‖² + ‖x‖²)`` elementwise
     (``l2dist.tolerance``, the stated bound of the tensor-core product), a
@@ -643,7 +689,6 @@ def phase1_build():
 
 
 def phase2_kernels(dev) -> dict:
-    import numpy as np
     import torch
 
     from repro_torch.kernels import ops
@@ -663,7 +708,7 @@ def phase2_kernels(dev) -> dict:
     torch.cuda.synchronize()
     check(bits_equal(got, want), "expand_score kernel != plain version")
     n_valid = int((idx >= 0).sum())
-    b_ms, b_by = bound(n_valid * 4 * d + B * C * 8 + B * d * 4, n_valid * 3 * d)
+    b_ms, b_by = kernel_bound(ops._score_cost(got, x, idx, q))
     shape = dict(n=n, d=d, B=B, C=C, masked=B * C - n_valid)
     rows["expand_score"] = dict(
         ms=cuda_ms(lambda: ops.expand_score(x, idx, q, backend="cuda")),
@@ -675,26 +720,22 @@ def phase2_kernels(dev) -> dict:
     from repro_torch.core.store import VectorPlane
     from repro_torch.kernels.expand_score import pq_lut
 
-    io_bytes = B * C * 8 + B * d * 4                      # ids in, distances out, queries
     planes = {
-        "expand_score_bf16": (VectorPlane.encode(x, "bf16"), 2 * d, 3 * d),
-        "expand_score_q": (VectorPlane.encode(x, "int8"), d, 5 * d),
-        "expand_score_pq": (VectorPlane(
+        "expand_score_bf16": VectorPlane.encode(x, "bf16"),
+        "expand_score_q": VectorPlane.encode(x, "int8"),
+        "expand_score_pq": VectorPlane(
             "pq", torch.randint(0, 256, (n, PQ_M), generator=g, device=dev, dtype=torch.uint8),
-            codebooks=torch.randn(PQ_M, 256, d // PQ_M, generator=g, device=dev)), PQ_M, PQ_M),
+            codebooks=torch.randn(PQ_M, 256, d // PQ_M, generator=g, device=dev)),
     }
     del x
-    lut = pq_lut(planes["expand_score_pq"][0].codebooks, q)
-    lut_ms = cuda_ms(lambda: pq_lut(planes["expand_score_pq"][0].codebooks, q), reps=5)
-    for name, (plane, row_bytes, row_ops) in planes.items():
+    lut = pq_lut(planes["expand_score_pq"].codebooks, q)
+    lut_ms = cuda_ms(lambda: pq_lut(planes["expand_score_pq"].codebooks, q), reps=5)
+    for name, plane in planes.items():
         run = lambda b: ops.expand_score_plane(plane, idx, q, backend=b, lut=lut)
         got, want = run("cuda"), run("torch")
         torch.cuda.synchronize()
         check(bits_equal(got, want), f"{name} kernel != plain version")
-        # pq reads the (B, m, 256) tables in place of the queries
-        extra = B * PQ_M * 256 * 4 - B * d * 4 if plane.tag == "pq" else 0
-        extra += 2 * d * 4 if plane.tag == "int8" else 0       # scale and zero
-        b_ms, b_by = bound(n_valid * row_bytes + io_bytes + extra, n_valid * row_ops)
+        b_ms, b_by = kernel_bound(ops._score_plane_cost(got, plane, idx, q))
         rows[name] = dict(
             ms=cuda_ms(lambda: run("cuda")), plain_ms=cuda_ms(lambda: run("torch"), reps=5),
             library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=max_abs_err(got, want),
@@ -719,9 +760,7 @@ def phase2_kernels(dev) -> dict:
     torch.cuda.synchronize()
     check(all(bits_equal(a, b) for a, b in zip(got, want)), "beam_merge kernel != plain version")
     cat_d = torch.cat([bd, cd], dim=1)
-    lg = int(np.log2(L))
-    ce_per_row = L // 2 * lg * (lg + 1) // 2 + E + E // 2 * int(np.log2(E))
-    b_ms, b_by = bound(B * (2 * E + 2 * L) * 4 + B * 2 * E * 4, B * ce_per_row * 2)
+    b_ms, b_by = kernel_bound(ops._merge_cost(got, bd, bp, cd, cp))
     rows["beam_merge"] = dict(
         ms=cuda_ms(lambda: ops.beam_merge(bd, bp, cd, cp, backend="cuda")),
         plain_ms=cuda_ms(lambda: ops.beam_merge(bd, bp, cd, cp, backend="torch"), reps=5),
@@ -740,9 +779,7 @@ def phase2_kernels(dev) -> dict:
     torch.cuda.synchronize()
     check(all(bits_equal(a, b) for a, b in zip(got, want)),
           "beam_merge kernel != plain version at L = 2048")
-    lg = int(np.log2(L))
-    ce_per_row = L // 2 * lg * (lg + 1) // 2 + E + E // 2 * int(np.log2(E))
-    b_ms, b_by = bound(B * (2 * E + 2 * L) * 4 + B * 2 * E * 4, B * ce_per_row * 2)
+    b_ms, b_by = kernel_bound(ops._merge_cost(got, bd, bp, cd, cp))
     rows["beam_merge"]["paper_degree"] = dict(
         ms=cuda_ms(lambda: ops.beam_merge(bd, bp, cd, cp, backend="cuda")),
         bound_ms=b_ms, bound_by=b_by, bitwise=True, shape=dict(B=B, E=E, L=L))
@@ -767,11 +804,9 @@ def phase2_kernels(dev) -> dict:
     want = ops.prune_sweep(*args, backend="torch", **kw)
     torch.cuda.synchronize()
     check(all(bits_equal(a, b) for a, b in zip(got, want)), "prune_sweep kernel != plain version")
-    # the pairs (t, w) the scan needs: valid t against retained w < t
-    kept = (got[0] > 0).int()
-    before = torch.cumsum(kept, dim=1) - kept
-    pairs = int((before * valid.int()).sum())
-    b_ms, b_by = bound(B * (2 + C * d + 2 * C + C + 2 * C) * 4 + 3 * B * C * 4, pairs * 3 * d)
+    cost = ops._sweep_cost(got, *args, **kw)
+    pairs = cost[1] // (3 * d)              # valid t against retained w < t, 3·d operations each
+    b_ms, b_by = kernel_bound(cost)
     rows["prune_sweep"] = dict(
         ms=cuda_ms(lambda: ops.prune_sweep(*args, backend="cuda", **kw)),
         plain_ms=cuda_ms(lambda: ops.prune_sweep(*args, backend="torch", **kw), reps=3, warm=1),
@@ -1104,17 +1139,11 @@ def phase6_bench(dev, main) -> tuple[dict, dict]:
              t: r["max_err_over_norms"] for t, r in ratio.items()},
          bound_over_norms=ratio["f32"]["factor"], integer_bitwise=dict(shape=N_L2_INT + (d,)))
     qb, xb = qv.to(torch.bfloat16), xl.to(torch.bfloat16)
-    # bound_ms is the tightest the card allows an fp32-accurate product:
-    # 3xTF32 on the tensor cores; the fp32 SIMT bound is kept beside it
-    simt_ms, simt_by = bound((nq + nx) * d * 4 + nq * nx * 4, 2 * nq * nx * d + 3 * nq * nx)
-    tc_ms, tc_by = bound((nq + nx) * d * 4 + nq * nx * 4, 3 * 2 * nq * nx * d, PEAK_TF32_PER_S)
-    bf_ms, bf_by = bound((nq + nx) * d * 2 + nq * nx * 4, 2 * nq * nx * d, PEAK_BF16_PER_S)
     rows["pairwise_sq_dist"] = dict(
         bf16_ms=cuda_ms(lambda: ops.pairwise_sq_dist(qb, xb, backend="cuda"), reps=10),
         library_ms=cuda_ms(lambda: torch.cdist(qv, xl), reps=10),
-        library="torch.cdist (adds a square root)", bound_ms=tc_ms, bound_by=tc_by,
-        bound_simt_ms=simt_ms, bound_simt_by=simt_by,
-        bf16_bound_ms=bf_ms, bf16_bound_by=bf_by,
+        library="torch.cdist (adds a square root)",
+        **product_bounds(ops._l2_cost(None, qv, xl), ops._l2_cost(None, qb, xb)[2]),
         max_abs_err=max(r["max_abs_err"] for r in ratio.values()),
         max_err_over_norms={t: r["max_err_over_norms"] for t, r in ratio.items()},
         shape=dict(nq=nq, nx=nx, d=d))
@@ -1153,22 +1182,16 @@ def phase6_bench(dev, main) -> tuple[dict, dict]:
     del qi8, xi8
     emit(phase=6, filtered_topk_within_rule=dict(queries=N_PLAIN, nx=n, small=[77, 3001, [1, 64]]),
          filtered_topk_max_abs_err=err, integer_bitwise=dict(shape=[N_PLAIN, N_L2, d]))
-    # bound_ms: the 3xTF32 product on the tensor cores; the fp32 SIMT bound
-    # and the bf16 entry's beside it
-    io = (nq + n) * 2 * 4 + nq * K_SCAN * 8                 # intervals in, top-k out
-    tc_ms, tc_by = bound((nq + n) * d * 4 + io, 3 * 2 * nq * n * d, PEAK_TF32_PER_S)
-    simt_ms, simt_by = bound((nq + n) * d * 4 + io, 2 * nq * n * d)
-    bf_ms, bf_by = bound((nq + n) * d * 2 + io, 2 * nq * n * d, PEAK_BF16_PER_S)
     qb, xb = qv.to(torch.bfloat16), x.to(torch.bfloat16)
+    bounds = product_bounds(ops._scan_cost(None, qv, x, ints, qi, k=K_SCAN),
+                            ops._scan_cost(None, qb, xb, ints, qi, k=K_SCAN)[2])
     rows["filtered_topk"] = dict(
         plain_queries=N_PLAIN, library_ms=None,
         brute_force_ms=cuda_ms(lambda: brute_force(x, ints, qv, qi, sem=Semantics.IF, k=K_SCAN),
                                reps=1, warm=1),
         bf16_ms=cuda_ms(lambda: ops.filtered_topk(qb, xb, ints, qi, is_filter=True, k=K_SCAN,
                                                   backend="cuda"), reps=3, warm=1),
-        bound_ms=tc_ms, bound_by=tc_by, bound_simt_ms=simt_ms, bound_simt_by=simt_by,
-        bf16_bound_ms=bf_ms, bf16_bound_by=bf_by, max_abs_err=err,
-        shape=dict(nq=nq, nx=n, d=d, k=K_SCAN))
+        **bounds, max_abs_err=err, shape=dict(nq=nq, nx=n, d=d, k=K_SCAN))
     del qb, xb
 
     # (c) the scan is the exact pre-filter
@@ -2615,14 +2638,6 @@ def tree_bits_equal(a, b) -> bool:
                                       for (pa, x), (pb, y) in zip(la, lb))
 
 
-def train_subprocess(args, timeout=CLI_TIMEOUT):
-    """``python -m repro_torch.launch.train ARGS`` started on the card."""
-    return subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.train", *args], cwd=ROOT,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
-
-
 def finish(proc, what: str, timeout=CLI_TIMEOUT) -> str:
     """The stdout of a subprocess that must exit 0 within ``timeout``."""
     try:
@@ -2651,12 +2666,14 @@ def phase13_training(dev, smi) -> dict:
     qwen1.5-4b, rwkv6-1.6b and one qwen3-moe layer at full width; the
     trained tower's embeddings indexed and searched; the lm_steps bench.
     Returns the launches of (f)."""
+    import io
     import shutil
 
     import torch
 
     from repro_torch.configs import get_arch, list_archs
     from repro_torch.data import LMDataConfig, lm_batch
+    from repro_torch.launch import train as train_cli
     from repro_torch.models import get_model
     from repro_torch.models.common import tree_leaves, tree_map
     from repro_torch.train import AdamWConfig, make_train_step, optim
@@ -2767,12 +2784,16 @@ def phase13_training(dev, smi) -> dict:
                 "--log-every", "1", "--ckpt-dir", str(drill_dir / "D1")]
         final = f"step_{CLI_DRILL['steps']:09d}"
         t0 = time.perf_counter()
-        lines = {"D1": finish(train_subprocess(base), "13b: the straight run")}
-        # the straight run's final checkpoint goes to D2; D1 keeps step 3 of 6
-        (drill_dir / "D2").mkdir()
-        shutil.move(drill_dir / "D1" / final, drill_dir / "D2" / final)
-        lines["D1 --resume"] = finish(train_subprocess(base + ["--resume"]),
-                                      "13b: the resumed run")
+        lines = {}
+        for what, extra in (("D1", []), ("D1 --resume", ["--resume"])):
+            if extra:   # the straight run's final checkpoint goes to D2; D1 keeps step 3 of 6
+                (drill_dir / "D2").mkdir()
+                shutil.move(drill_dir / "D1" / final, drill_dir / "D2" / final)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = train_cli.main(base + extra)
+            lines[what] = buf.getvalue()
+            check(rc == 0, f"13b: the {what} CLI run returned {rc}")
         drill_s = time.perf_counter() - t0
         resumed = f"resumed at step {CLI_DRILL['ckpt_every']}" in lines["D1 --resume"]
         same = same_checkpoint(drill_dir / "D1" / final, drill_dir / "D2" / final)
@@ -2899,6 +2920,9 @@ def train_full_width(arch, dev, smi):
                peak_memory_allocated=torch.cuda.max_memory_allocated(),
                checks=dict(finite=finite, params_changed=changed))
     if arch == "qwen1.5-4b":
+        MEASURED["13c"] = dict(batch=B, seq=S, step_ms=[r["ms"] for r in log],
+                               median_ms=statistics.median(timed_ms),
+                               peak_memory_allocated=torch.cuda.max_memory_allocated())
         rec.update(model_params=n_model, model_tflops=6 * n_model * tok_s / 1e12,
                    peak_bf16_tflops=PEAK_BF16_PER_S / 1e12,
                    note="model TFLOP/s counts 6 N per token (one forward, one backward); "
@@ -3247,6 +3271,11 @@ def phase14_mesh(dev, smi) -> dict:
             collective_ms=[x * 1e3 for x in coll],
             compute_ms=[(x - c) * 1e3 for x, c in zip(t["seconds"], coll)],
             tokens_per_s=Bf * Sf / med, loss=t["loss"], grad_norm=t["grad_norm"]))
+    MEASURED["14d"] = [dict(rank=r, collective_s=lg["rwkv"]["collective_seconds"],
+                            collective_bytes=lg["rwkv"]["collective_bytes"],
+                            ep_seconds=lg["ep"]["seconds"],
+                            ep_collective_bytes=lg["ep"]["collective_bytes"])
+                       for r, lg in enumerate(logs)]
     finite = all(math.isfinite(v) for p in per_proc for v in p["loss"] + p["grad_norm"])
     half = all(p["param_bytes"] == held_bytes["params"]
                and p["moment_bytes"] == held_bytes["moments"] for p in per_proc)
@@ -3327,6 +3356,126 @@ def phase14_mesh(dev, smi) -> dict:
     return launches
 
 
+def phase15_dryrun(dev, smi) -> dict:
+    """The dry-run, its tally and the roofline on the card (see the module
+    docstring); returns the launches of (d)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.hlo_analysis import ep_layer_collectives, mesh_step_collectives
+    from repro_torch.launch.mesh import Mesh, make_mesh
+    from repro_torch.models import get_model
+
+
+    # (a) three cells through the CLI, the three subprocesses side by side
+    # while (b)-(d) run here
+    t_a = time.perf_counter()
+    work = ROOT / "build" / "dryrun_phase"
+    work.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for i, (arch, shape) in enumerate(DRYRUN_CELLS):
+        out = work / f"cell{i}.jsonl"
+        out.unlink(missing_ok=True)
+        cell = ["--index-cell"] if arch is None else ["--arch", arch, "--shape", shape]
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *cell, "--mesh", "single",
+               "--out", str(out)]
+        procs.append((cmd, out, subprocess.Popen(
+            cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))))
+
+    # (b) 13(c)'s cell counted on meta, its terms beside 13(c)'s measured step
+    t0 = time.perf_counter()
+    m13 = MEASURED["13c"]
+    shape = ShapeSpec("train_13c", m13["seq"], m13["batch"], "train")
+    rec = dryrun.run_cell("qwen1.5-4b", shape, "1x1", verbose=False,
+                          mesh=make_mesh((1, 1), ("data", "model"), device="meta"))
+    check(rec["ok"], f"15b: {rec.get('error')}")
+    t = roofline.analyze(rec)
+    bound = max(t["t_compute_s"], t["t_memory_s"], t["t_collective_s"])
+    n_model = get_arch("qwen1.5-4b").config.param_count()
+    model_flops = 6 * n_model * m13["batch"] * m13["seq"]
+    measured_s = m13["median_ms"] / 1e3
+    emit(phase=15, part="b", card=smi, cell="qwen1.5-4b whole, B = %d, S = %d, (1, 1) mesh"
+         % (m13["batch"], m13["seq"]), flops=rec["flops"], bytes_accessed=rec["bytes_accessed"],
+         collective_bytes=rec["collective_bytes"],
+         **{k: t[k] for k in ("t_compute_s", "t_memory_s", "t_collective_s", "dominant")},
+         mem_argument=rec["mem"]["argument"], top_ops=rec["top_ops"],
+         measured_median_ms=m13["median_ms"], measured_step_ms=m13["step_ms"],
+         measured_peak_memory_allocated=m13["peak_memory_allocated"],
+         temp_stand_in="peak memory allocated of the measured step (no compiler's temp)",
+         model_flops=model_flops, bound_over_measured=bound / measured_s,
+         model_flops_fraction=model_flops / roofline.PEAK_FLOPS / measured_s,
+         seconds=time.perf_counter() - t0)
+
+    # (c) 14(d)'s rwkv6 step and EP layer: the plan's collective bytes a
+    # process beside what its collectives counted and their measured seconds
+    cfg = dataclasses.replace(get_arch(MESH_FULL["arch"]).config, dtype=torch.bfloat16)
+    ecfg = dataclasses.replace(get_arch(EP_FULL["arch"]).config, n_layers=1,
+                               dtype=torch.bfloat16)
+    for m in MEASURED["14d"]:
+        mesh = Mesh(MESH_FULL["mesh"], ("data", "model"), torch.device("cpu"),
+                    (MESH_PROCS, 1), (m["rank"], 0), {})
+        plan = mesh_step_collectives(get_model(cfg), mesh).stats()
+        mesh_e = Mesh(EP_FULL["mesh"], ("data", "model"), torch.device("cpu"),
+                      (1, MESH_PROCS), (0, m["rank"]), {})
+        ep_plan = ep_layer_collectives(ecfg, mesh_e, EP_FULL["B"], EP_FULL["S"]).stats()
+        coll_s = m["collective_s"]
+        emit(phase=15, part="c", card=smi, rank=m["rank"], plan_bytes=plan.total_bytes,
+             plan_by_type=plan.by_type, plan_by_part=plan.by_computation,
+             counted_bytes=m["collective_bytes"], collective_s=coll_s,
+             achieved_gb_per_s=[plan.total_bytes / x / 1e9 for x in coll_s],
+             ep_plan_by_type=ep_plan.by_type, ep_counted_bytes=m["ep_collective_bytes"],
+             ep_seconds=m["ep_seconds"])
+        check(all(c == plan.by_type for c in m["collective_bytes"]),
+              f"15c: rank {m['rank']}: counted {m['collective_bytes']} != plan {plan.by_type}")
+        check(m["ep_collective_bytes"] == ep_plan.by_type,
+              f"15c: rank {m['rank']}: the EP layer counted {m['ep_collective_bytes']} "
+              f"!= plan {ep_plan.by_type}")
+
+    # (d) the index cell's step on the card, counted from 0, and on the CPU
+    t0 = time.perf_counter()
+    mesh = make_mesh((16, 16), ("data", "model"), device=dev)
+    ops.reset_launches()
+    card, _, mem, plan, (ids, dist) = dryrun.count_index_cell(mesh, device=dev)
+    torch.cuda.synchronize()
+    launches = {name: ops.launches.get(name, 0) for name in DRYRUN_KERNELS}
+    card_s = time.perf_counter() - t0
+    plain, _, _, _, (ids_p, dist_p) = dryrun.count_index_cell(mesh, device="cpu")
+    same = (card.flops, card.ops, card.hbm_bytes, dict(card.kernels), dict(card.by_op)) == \
+        (plain.flops, plain.ops, plain.hbm_bytes, dict(plain.kernels), dict(plain.by_op))
+    # the kernels' results at the cell's shapes: the two-iteration step's
+    # ids and distances, the card's against the plain versions' on the CPU
+    found = int((ids >= 0).sum())
+    bitwise = bits_equal(ids.cpu(), ids_p) and bits_equal(dist.cpu(), dist_p)
+    emit(phase=15, part="d", card=smi, launches=launches, flops=card.flops,
+         other_ops=card.ops, hbm_bytes=card.hbm_bytes, kernels=card.top("kernels"), mem=mem,
+         collective_bytes=plan.stats().total_bytes, card_equals_cpu=same,
+         results_bitwise_cpu=bitwise, results_found=found,
+         max_abs_err=max_abs_err(dist.cpu(), dist_p), card_seconds=card_s,
+         seconds=time.perf_counter() - t0)
+    check(all(v > 0 for v in launches.values()), f"15d: a kernel did not launch: {launches}")
+    check(same, "15d: the index cell's tally on the card != its plain versions' on the CPU: "
+                f"{card.flops, card.ops, card.hbm_bytes, dict(card.kernels)} != "
+                f"{plain.flops, plain.ops, plain.hbm_bytes, dict(plain.kernels)}")
+    check(found > 0 and bool(torch.isfinite(dist[ids >= 0]).all()),
+          f"15d: the index cell's step found {found} results, or distances not finite")
+    check(bitwise, "15d: the index cell's ids and distances on the card != the plain "
+                   "versions' on the CPU")
+
+    for cmd, out, proc in procs:           # (a)
+        finish(proc, "15a: " + " ".join(cmd[3:]), timeout=DRYRUN_TIMEOUT)
+        rec = json.loads(out.read_text().splitlines()[-1])
+        check(rec["ok"] and not rec.get("skipped"), f"15a: {rec.get('error')}")
+        emit(phase=15, part="a", card=smi, command=" ".join(cmd[3:]), record=rec,
+             roofline=roofline.analyze(rec), seconds=time.perf_counter() - t_a)
+    return launches
+
+
 def result_on_cpu(res):
     """A card result's tensors on the CPU."""
     from repro_torch.core import SearchResult
@@ -3371,6 +3520,7 @@ def main() -> int:
     family_launches = run(12, phase12_families, dev, smi)
     training_launches = run(13, phase13_training, dev, smi)
     mesh_launches = run(14, phase14_mesh, dev, smi)
+    dryrun_launches = run(15, phase15_dryrun, dev, smi)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -3393,7 +3543,8 @@ def main() -> int:
                if name in FAMILY_KERNELS else {}),
             **({"launches_training": training_launches[name]}
                if name in TRAIN_KERNELS else {}),
-            **({"launches_mesh": mesh_launches[name]} if name in MESH_KERNELS else {})))
+            **({"launches_mesh": mesh_launches[name]} if name in MESH_KERNELS else {}),
+            **({"launches_dryrun": dryrun_launches[name]} if name in DRYRUN_KERNELS else {})))
     left = children_left()
     check(not left, f"processes this run started are still running: {left}")
     emit(seconds=time.perf_counter() - t_start, phase_seconds=phase_seconds, card=smi,

@@ -117,20 +117,21 @@ def shard_index(
 
 
 def _local_search(store: IndexStore, gids, q_v, q_int, sem_flags, *, ef: int, k: int,
-                  backend: str | None, width: int):
+                  backend: str | None, width: int, max_steps: int = 0):
     """One shard's search, as the reference runs it inside ``shard_map``:
     an entry structure over the shard's live rows, Alg. 5, Alg. 4 with the
     same liveness mask, and the ids mapped to global ids.
 
     Rows with gid ``< 0`` (pads, shard-level tombstones) are kept out of the
     entry structure, so Alg. 5 never certifies them (Lemma 4.3), and out of
-    the result; they still route traffic through their edges."""
+    the result; they still route traffic through their edges.  ``max_steps``
+    caps the expansions (0: ``beam_search_flags``'s default)."""
     alive = gids >= 0
     eidx = build_entry_index(store.intervals, node_mask=alive)
     st = store.replace(entry=eidx, alive=alive)
     entry = get_entry_batch_flags(eidx, q_int, sem_flags, width=width)
-    res = beam_search_flags(st, entry, q_v, q_int, sem_flags,
-                            ef=ef, k=k, backend=backend, width=width)
+    res = beam_search_flags(st, entry, q_v, q_int, sem_flags, ef=ef, k=k,
+                            max_steps=max_steps, backend=backend, width=width)
     nloc = store.capacity
     g = torch.where(res.ids >= 0, gids[res.ids.clamp(0, nloc - 1).long()], -1)
     return g.to(torch.int32), res.dist
@@ -178,6 +179,7 @@ def make_sharded_search_fn(
     mixed: bool = False,
     plane_tag: str = "f32",
     has_rerank: bool = False,
+    max_steps: int = 0,
 ) -> Callable:
     """The sharded search step over a :class:`ShardedIndex`.
 
@@ -186,7 +188,8 @@ def make_sharded_search_fn(
     per-shard top-k are merged across the index axes.  With
     ``hierarchical=True`` and two index axes (pod, data) the merge reduces
     along the inner axis first.  ``backend``/``width`` select the
-    shard-local search's kernels and frontier width.  ``replicated_axes``
+    shard-local search's kernels and frontier width, ``max_steps`` caps
+    its expansions (0: ``beam_search_flags``'s default).  ``replicated_axes``
     hold replicas, which add no shards.
 
     With ``mixed=True`` the function takes a trailing ``(B,)`` int32
@@ -208,7 +211,7 @@ def make_sharded_search_fn(
                 f"the step was made for {plane_tag} (rerank {has_rerank})")
         n_local = int(np.prod(local))
         outs = [_local_search(store, gids, q_v, q_int, sem_flags, ef=ef, k=k,
-                              backend=backend, width=width)
+                              backend=backend, width=width, max_steps=max_steps)
                 for store, gids in (local_shard_view(sidx, s, n_local) for s in range(n_local))]
         ids = torch.stack([o[0] for o in outs]).reshape(*local, *outs[0][0].shape)
         dist = torch.stack([o[1] for o in outs]).reshape(*local, *outs[0][1].shape)

@@ -12,9 +12,24 @@ in the reference.
 
 :func:`all_gather` is the one-shot gather of the search merge.  On a gloo
 group CUDA tensors go through the host; NCCL takes them as they are.
+
+:data:`COUNTS` adds up, by the reference's five collective types, the
+operand bytes this process hands to collectives that span more than one
+process: an all-gather's operand is the block it sends, a reduce-scatter's
+and an all-reduce's the whole contribution, a ring hop's (a
+collective-permute) the block it passes on, an all-to-all's its send
+buffer (``models/moe.py``).  A collective made inside another (the ring
+hops of a reduce-scatter) counts as part of the outer one.
+``launch/hlo_analysis.py`` plans the same counts for a step.
+
+An axis whose group is a :class:`Planned` moves nothing: each collective
+runs its local ops and stands every peer's block in by this process's own
+(``launch/dryrun.py`` runs one card's step of a large mesh so).
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Callable
 
 import torch
@@ -24,10 +39,54 @@ from repro_torch.launch.mesh import Mesh
 
 _all_gather_single = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 
+COUNTS: dict[str, int] = {}      # collective type -> operand bytes, since the last reset
+_LOCK = threading.Lock()
+_DEPTH = threading.local()
+
+
+def reset_counts() -> None:
+    with _LOCK:
+        COUNTS.clear()
+
+
+def counts() -> dict[str, int]:
+    """A copy of :data:`COUNTS`."""
+    with _LOCK:
+        return dict(COUNTS)
+
+
+def spans(mesh: Mesh, axis: str) -> bool:
+    """Whether ``axis`` spans more than one process."""
+    return mesh.procs[mesh.axes.index(axis)] > 1
+
+
+@contextlib.contextmanager
+def counted(kind: str, nbytes: int, across: bool):
+    """Count ``nbytes`` under ``kind`` for the block when ``across`` (the
+    collective spans processes) and no collective around it counts."""
+    depth = getattr(_DEPTH, "n", 0)
+    if across and depth == 0:
+        with _LOCK:
+            COUNTS[kind] = COUNTS.get(kind, 0) + int(nbytes)
+    _DEPTH.n = depth + 1
+    try:
+        yield
+    finally:
+        _DEPTH.n = depth
+
+
+def _nbytes(*ts: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+class Planned:
+    """The process group of an axis whose collectives are planned and not
+    run: no data moves, and a peer's block is this process's own."""
+
 
 def _staged(t: torch.Tensor, group) -> bool:
     """Whether ``t`` goes through the host on ``group`` (CUDA on gloo)."""
-    return t.is_cuda and dist.get_backend(group) == "gloo"
+    return t.is_cuda and not isinstance(group, Planned) and dist.get_backend(group) == "gloo"
 
 
 def all_gather(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
@@ -37,10 +96,14 @@ def all_gather(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     group = mesh.groups.get(axis)
     if group is None:
         return t[None]
-    stage = _staged(t, group)
-    src = (t.cpu() if stage else t).contiguous()[None]
-    out = src.new_empty((dist.get_world_size(group),) + tuple(t.shape))
-    _all_gather_single(out, src, group=group)
+    with counted("all-gather", _nbytes(t), spans(mesh, axis)):
+        stage = _staged(t, group)
+        src = (t.cpu() if stage else t).contiguous()[None]
+        procs = mesh.procs[mesh.axes.index(axis)]
+        if isinstance(group, Planned):
+            return src.expand((procs,) + tuple(t.shape))
+        out = src.new_empty((procs,) + tuple(t.shape))
+        _all_gather_single(out, src, group=group)
     return out.to(t.device) if stage else out
 
 
@@ -49,9 +112,11 @@ def all_reduce_max(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     group = mesh.groups.get(axis)
     if group is None:
         return t
-    stage = _staged(t, group)
-    out = t.cpu() if stage else t.clone()
-    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    with counted("all-reduce", _nbytes(t), spans(mesh, axis)):
+        stage = _staged(t, group)
+        out = t.cpu() if stage else t.clone()
+        if not isinstance(group, Planned):
+            dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
     return out.to(t.device) if stage else out
 
 
@@ -62,13 +127,16 @@ def ring_hop(blocks: tuple[torch.Tensor, ...], mesh: Mesh, axis: str) -> tuple[t
         return tuple(torch.roll(b, 1, dims=0) for b in blocks)
     group = mesh.groups[axis]
     nxt, prv = mesh.peer(axis, 1), mesh.peer(axis, -1)
-    stage = [_staged(b, group) for b in blocks]
-    sends = [(b[-1].cpu() if s else b[-1]).contiguous() for b, s in zip(blocks, stage)]
-    recvs = [torch.empty_like(x) for x in sends]
-    ops = [dist.P2POp(dist.isend, x, nxt, group=group) for x in sends]
-    ops += [dist.P2POp(dist.irecv, x, prv, group=group) for x in recvs]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
+    with counted("collective-permute", _nbytes(*(b[-1] for b in blocks)), True):
+        stage = [_staged(b, group) for b in blocks]
+        sends = [(b[-1].cpu() if s else b[-1]).contiguous() for b, s in zip(blocks, stage)]
+        recvs = sends
+        if not isinstance(group, Planned):
+            recvs = [torch.empty_like(x) for x in sends]
+            ops = [dist.P2POp(dist.isend, x, nxt, group=group) for x in sends]
+            ops += [dist.P2POp(dist.irecv, x, prv, group=group) for x in recvs]
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
     return tuple(torch.cat([r.to(b.device)[None], b[:-1]]) for b, r in zip(blocks, recvs))
 
 
@@ -85,10 +153,11 @@ def ring_all_gather(x: torch.Tensor, mesh: Mesh, axis: str):
     ``blocks[i, t]`` is the block of shard ``(me_i − t) mod size``."""
     size = mesh.size(axis)
     out, blk = [], x
-    for t in range(size):
-        out.append(blk)
-        if t + 1 < size:
-            (blk,) = ring_hop((blk,), mesh, axis)
+    with counted("all-gather", _nbytes(x), spans(mesh, axis)):
+        for t in range(size):
+            out.append(blk)
+            if t + 1 < size:
+                (blk,) = ring_hop((blk,), mesh, axis)
     return size, torch.stack(out, dim=1)
 
 
@@ -100,9 +169,10 @@ def ring_reduce_scatter(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     size = mesh.size(axis)
     me = _me(mesh, axis)
     acc = torch.stack([x[i, (m - 1) % size] for i, m in enumerate(me)])
-    for k in range(size - 1):
-        (acc,) = ring_hop((acc,), mesh, axis)
-        acc = acc + torch.stack([x[i, (m - k - 2) % size] for i, m in enumerate(me)])
+    with counted("reduce-scatter", _nbytes(x), spans(mesh, axis)):
+        for k in range(size - 1):
+            (acc,) = ring_hop((acc,), mesh, axis)
+            acc = acc + torch.stack([x[i, (m - k - 2) % size] for i, m in enumerate(me)])
     return acc
 
 
@@ -116,8 +186,10 @@ def ring_all_reduce(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     size, local = mesh.size(axis), x.shape[0]
     n = x[0].numel()
     pad = (-n) % size
-    flat = torch.nn.functional.pad(x.reshape(local, n), (0, pad)).view(local, size, -1)
-    _, blocks = ring_all_gather(ring_reduce_scatter(flat, mesh, axis), mesh, axis)
+    flat = x.new_zeros((local, size, (n + pad) // size))
+    flat.view(local, -1)[:, :n].view(x.shape).copy_(x)       # one pass, whatever x's strides
+    with counted("all-reduce", _nbytes(x), spans(mesh, axis)):
+        _, blocks = ring_all_gather(ring_reduce_scatter(flat, mesh, axis), mesh, axis)
     # blocks[i, t] holds chunk (me_i - t) mod size: put the chunks in order
     order = torch.stack([torch.tensor([(m - c) % size for c in range(size)])
                          for m in _me(mesh, axis)]).to(x.device)

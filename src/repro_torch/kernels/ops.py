@@ -8,21 +8,94 @@ kernel that fails to build or launch raises: there is no fallback.
 ``"legacy"``, where an entry point takes it, runs the pre-fusion baseline in
 plain PyTorch on any device (the A/B yardstick of the memory profiles and
 the bench); it is taken here, before the policy above, which stays strict.
+
+Each entry carries its kernel's cost (:func:`~repro_torch.kernels.util.
+metered`), the one rule for both the dry-run's tally and ``chip_smoke.py``'s
+bound column: the products' FLOPs (``2·m·n·d`` a product, whatever route
+runs it; none for a kernel without products), its other operations (fp32
+arithmetic and compare-exchanges outside the tensor cores) and the bytes it
+must move, each input read once and each output written once.  Where they
+depend on the data (masked candidates, the sweep's retained pairs) they are
+this call's.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import beam_merge as beam_merge_mod
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels import expand_score as expand_score_mod
 from repro_torch.kernels import fused_scan, l2dist
 from repro_torch.kernels import prune_sweep as prune_sweep_mod
-from repro_torch.kernels.util import resolve_backend
+from repro_torch.kernels.beam_merge import next_pow2
+from repro_torch.kernels.util import metered, resolve_backend
 
 # Launch counts of the CUDA kernels since the last reset.
 launches = cuda_lib.launches
 reset_launches = cuda_lib.reset_launches
 
 
+# ------------------------------------------------- each kernel's own work
+# Each returns ``(product FLOPs, other operations, bytes[, kernel name])``.
+def _l2_cost(out, q, x, **_):
+    """The ``(nq, nx, d)`` product, and the norms' adds an entry."""
+    nq, d = q.shape
+    nx = x.shape[0]
+    return 2 * nq * nx * d, 3 * nq * nx, (nq + nx) * d * x.element_size() + nq * nx * 4
+
+
+def _scan_cost(out, q, x, obj_int, q_int, *, k, **_):
+    nq, d = q.shape
+    n = x.shape[0]
+    io = (nq + n) * 2 * 4 + nq * k * 8            # intervals in, top-k out
+    return 2 * nq * n * d, 0, (nq + n) * d * x.element_size() + io
+
+
+def _plane_cost(tag: str, data, idx, q) -> tuple[int, int, int, str]:
+    """Scoring ``idx``'s valid rows of a plane: each row read once, its
+    operations; the ids in, the distances out and the queries (pq: the
+    per-query tables) read.  Also the kernel's name."""
+    n_valid = int((idx >= 0).sum())
+    B, C = idx.shape
+    d = q.shape[1]
+    io = B * C * 8 + B * d * 4
+    if tag == "pq":
+        m = data.shape[1]
+        return 0, n_valid * m, n_valid * m + io + B * m * 256 * 4 - B * d * 4, "expand_score_pq"
+    if tag == "int8":      # and the scale and zero
+        return 0, n_valid * 5 * d, n_valid * d + io + 2 * d * 4, "expand_score_q"
+    name = "expand_score_bf16" if data.dtype == torch.bfloat16 else "expand_score"
+    return 0, n_valid * 3 * d, n_valid * d * data.element_size() + io, name
+
+
+def _score_cost(out, x, idx, q, **_):
+    return _plane_cost("f32", x, idx, q)
+
+
+def _score_plane_cost(out, plane, idx, q, **_):
+    return _plane_cost(plane.tag, plane.data, idx, q)
+
+
+def _sweep_cost(out, i_u, xs, i_c, d_uc, valid, overlap, **_):
+    """The pairs ``(t, w)`` the scan needs: valid ``t`` against retained
+    ``w < t``, a distance each."""
+    B, C, d = xs.shape
+    kept = (out[0] > 0).int()
+    before = torch.cumsum(kept, dim=1) - kept          # retained w < t for each t
+    pairs = int((before * valid.int()).sum())
+    return 0, pairs * 3 * d, B * (2 + C * d + 2 * C + C + 2 * C) * 4 + 3 * B * C * 4
+
+
+def _merge_cost(out, beam_d, beam_p, cand_d, cand_p, **_):
+    """The bitonic network's compare-exchanges, two operations each."""
+    B, E = beam_d.shape
+    L = cand_d.shape[1]
+    lg, le = next_pow2(max(L, 2)).bit_length() - 1, next_pow2(E).bit_length() - 1
+    compare_exchanges = L // 2 * lg * (lg + 1) // 2 + E + E // 2 * le
+    return 0, B * compare_exchanges * 2, B * (2 * E + 2 * L) * 4 + B * 2 * E * 4
+
+
+@metered("pairwise_sq_dist", _l2_cost)
 def pairwise_sq_dist(q, x, *, backend: str | None = None):
     """``(nq, d) × (nx, d) → (nq, nx)`` squared L2 distances, float32 out;
     ``q`` and ``x`` are float32 or bfloat16."""
@@ -31,6 +104,7 @@ def pairwise_sq_dist(q, x, *, backend: str | None = None):
     return l2dist.pairwise_sq_dist_torch(q, x)
 
 
+@metered("filtered_topk", _scan_cost)
 def filtered_topk(q, x, obj_int, q_int, *, is_filter: bool, k: int,
                   backend: str | None = None):
     """Interval predicate, distances and exact top-k in one corpus pass:
@@ -43,6 +117,7 @@ def filtered_topk(q, x, obj_int, q_int, *, is_filter: bool, k: int,
     return fn(q, x, obj_int, q_int, is_filter=is_filter, k=k)
 
 
+@metered("expand_score", _score_cost)
 def expand_score(x, idx, q, *, backend: str | None = None):
     """Squared L2 between ``q[b]`` and ``x[idx[b, c]]`` (``+inf`` where
     ``idx < 0``); ``x`` is float32 or bfloat16.  ``backend="legacy"`` is the
@@ -69,6 +144,7 @@ def pq_lut(plane, q):
     return expand_score_mod.pq_lut(plane.codebooks, q)
 
 
+@metered("expand_score", _score_plane_cost)
 def expand_score_plane(plane, idx, q, *, backend: str | None = None, lut=None):
     """Expand-score against a vector plane (core/store.py), dispatched on its
     tag: ``f32`` and ``bf16`` go to :func:`expand_score`, ``int8`` to the
@@ -95,6 +171,7 @@ def expand_score_plane(plane, idx, q, *, backend: str | None = None, lut=None):
     return expand_score(plane.data, idx, q, backend=backend)
 
 
+@metered("prune_sweep", _sweep_cost)
 def prune_sweep(
     i_u, xs, i_c, d_uc, valid, overlap,
     *,
@@ -117,6 +194,7 @@ def prune_sweep(
     return prune_sweep_mod.prune_sweep_torch(i_u, xs, i_c, d_uc, valid, overlap, **kw)
 
 
+@metered("beam_merge", _merge_cost)
 def beam_merge(beam_d, beam_p, cand_d, cand_p, *, backend: str | None = None):
     """Bitonic partial merge of scored candidates into the sorted beam."""
     if resolve_backend(backend, beam_d) == "cuda":

@@ -2,6 +2,8 @@
 device / backend policy every entry point and kernel wrapper follows."""
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
@@ -85,6 +87,33 @@ def no_tf32() -> None:
     uses a single TF32 product."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+# The cost meters a caller has entered (``launch/hlo_analysis.py``'s step
+# tally), the innermost last.
+METERS: list = []
+
+
+def metered(name: str, cost):
+    """Decorate a kernel entry of ``kernels/ops.py`` for the cost meters.
+
+    Without a meter the entry runs as it is.  Under one, a call charges the
+    kernel's own work, ``cost(out, *args, **kw) -> (product flops, other
+    operations, bytes)``, to the innermost meter (a fourth item, where
+    given, names the kernel the call launched), and the ops the call runs
+    inside (the plain version's, or the wrapper's around a launch) are not
+    counted again: so a step counts the same on the CPU as on the card,
+    where the kernel launches outside PyTorch's dispatcher.
+    ``backend="legacy"`` launches no kernel: its ops are counted as they
+    run."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def entry(*args, **kw):
+            if not METERS or kw.get("backend") == "legacy":
+                return fn(*args, **kw)
+            return METERS[-1].kernel_call(name, cost, fn, args, kw)
+        return entry
+    return wrap
 
 
 class OutputShapes(TorchDispatchMode):

@@ -200,10 +200,12 @@ def run_mesh_train(model, mesh, full, batches: list, opt_kw: dict, *, microbatch
     whole parameters ``full`` (each leaf sharded to this process's block).
     Returns ``(blocks, opt_state, log)``: ``log`` holds each step's loss,
     ce, aux, grad norm and dropped assignments (MoE), its seconds and the
-    seconds spent in its collectives, and the bytes of the parameter and
-    moment blocks this process holds."""
+    seconds spent in its collectives, the bytes of the parameter and
+    moment blocks this process holds, and each step's collective operand
+    bytes by type (``distributed.collectives.COUNTS``)."""
     import time
 
+    from repro_torch.distributed.collectives import counts, reset_counts
     from repro_torch.launch.shardings import shard_tree
     from repro_torch.train import AdamWConfig, make_train_step, optim
 
@@ -213,16 +215,18 @@ def run_mesh_train(model, mesh, full, batches: list, opt_kw: dict, *, microbatch
     step = make_train_step(model, ocfg, mesh, microbatches=microbatches, donate=True)
     step.timing = {}
     log = dict(loss=[], ce=[], aux=[], grad_norm=[], seconds=[], collective_seconds=[],
-               dropped=[])
+               collective_bytes=[], dropped=[])
     for batch in batches:
         step.timing.clear()
         _sync(mesh.device)
+        reset_counts()
         t0 = time.perf_counter()
         blocks, opt, m = step(blocks, opt, batch)
         loss = float(m["loss"])
         _sync(mesh.device)
         log["seconds"].append(time.perf_counter() - t0)
         log["collective_seconds"].append(sum(step.timing.values()))
+        log["collective_bytes"].append(counts())
         log["loss"].append(loss)
         log["grad_norm"].append(float(m["grad_norm"]))
         for key in ("ce", "aux", "dropped"):
@@ -241,8 +245,11 @@ def run_ep_layer(cfg, mesh, layer, x, g):
     backward of ``Σ y · g + aux``.  Returns the whole ``y``, ``aux``, the
     whole input gradient and the layer's whole gradients (gathered), the
     seconds of the forward and backward, the bytes the all-to-alls sent to
-    other processes and the assignments the per-shard capacity dropped."""
+    other processes, the assignments the per-shard capacity dropped and
+    the forward's and backward's collective operand bytes by type."""
     import time
+
+    from repro_torch.distributed.collectives import counts, reset_counts
 
     from repro_torch.launch.shardings import gather_leaf, shard_leaf, shard_tree
     from repro_torch.models import moe, shard_ctx
@@ -259,6 +266,7 @@ def run_ep_layer(cfg, mesh, layer, x, g):
     gb = shard_leaf(g, mesh, x_spec)
     moe.EP_STATS.update(a2a_bytes_sent=0, dropped=0)
     _sync(mesh.device)
+    reset_counts()
     t0 = time.perf_counter()
     with shard_ctx.use_mesh(mesh), torch.enable_grad():
         y, aux = moe.moe_ffn(cfg, p, xb)
@@ -267,12 +275,13 @@ def run_ep_layer(cfg, mesh, layer, x, g):
         grads = torch.autograd.grad(loss, leaves)
     _sync(mesh.device)
     seconds = time.perf_counter() - t0
+    collective_bytes = counts()
     out = dict(y=gather_leaf(y.detach(), mesh, x_spec), aux=aux.detach(),
                dx=gather_leaf(grads[0], mesh, x_spec))
     for (path, _), gr in zip(blocks.items(), grads[1:]):
         out["grad/" + "/".join(path)] = gather_leaf(gr, mesh, specs[path])
     return out, dict(seconds=seconds, all_to_all_bytes_sent=moe.EP_STATS["a2a_bytes_sent"],
-                     dropped=moe.EP_STATS["dropped"])
+                     dropped=moe.EP_STATS["dropped"], collective_bytes=collective_bytes)
 
 
 def train_rank_program(rank: int, world: int, inputs: str | None, out_dir: str,

@@ -380,11 +380,14 @@ def _transpose_shards(t, mesh, axis: str):
         return t.transpose(0, 1).contiguous()
     chunk = t.shape[2:]
     x = t.reshape((L, procs, L) + chunk).transpose(0, 1).transpose(1, 2).contiguous()
+    from repro_torch.distributed.collectives import counted
+
     group = mesh.groups[axis]
     stage = t.is_cuda and dist.get_backend(group) == "gloo"
     src = x.cpu() if stage else x
     out = torch.empty_like(src)
-    dist.all_to_all_single(out, src, group=group)
+    with counted("all-to-all", src.numel() * src.element_size(), True):
+        dist.all_to_all_single(out, src, group=group)
     EP_STATS["a2a_bytes_sent"] += src.numel() * src.element_size() * (procs - 1) // procs
     out = out.to(t.device) if stage else out
     # out[p, k, j'] is process p's shard j' chunk for my shard k

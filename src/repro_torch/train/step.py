@@ -297,7 +297,7 @@ class _MeshStep:
                     leaves = [leaf for _, leaf in tree_leaves(live)]
                     g_out = dict(zip(paths, torch.autograd.grad(
                         loss, leaves, allow_unused=True, materialize_grads=True)))
-            dropped = sum(int(t) for t in ds.dropped) if ds is not None else 0
+            dropped = sum(ds.dropped) if ds is not None else 0
             return loss.detach(), ce.detach(), aux.detach(), dropped, g_out
 
         fns = [lambda q=q: shard(q) for q in range(len(self.shards))]

@@ -30,7 +30,8 @@ here, beside the port's side in this process and in 2 gloo processes:
   step's global dispatch (its aux equals its one-device aux), and the
   port's mesh step lies within 1e-6 of it on every parameter;
 * 2 gloo processes give the EP layer, the compressed mean and residual
-  and the pipeline bitwise as one process holding every shard.
+  and the pipeline bitwise as one process holding every shard; the
+  collective bytes each rank's EP layer counted equal the dry-run's plan.
 """
 import math
 import os
@@ -415,3 +416,23 @@ def test_two_processes_bitwise_one_process(inputs, reference):
     out = pipeline_forward(make_mesh((4,), ("stage",), device="cpu"), "stage",
                            PIPE["stage_fn"], W, xm)
     assert np.array_equal(ranks["pipe/out"], host_bits(out))
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_ep_collective_plan_equals_the_gloo_counts(inputs, reference, rank):
+    """The collective bytes each gloo rank's EP layer counted (forward and
+    backward, ``distributed.collectives.COUNTS``) equal the dry-run's plan
+    of the layer (``launch/hlo_analysis.py::ep_layer_collectives``) for its
+    place in the process grid."""
+    import json
+
+    from repro_torch.launch.hlo_analysis import ep_layer_collectives
+    from repro_torch.launch.mesh import Mesh, _process_grid
+
+    procs = _process_grid((2, 2), 2)
+    mesh = Mesh((2, 2), ("data", "model"), torch.device("cpu"), procs,
+                tuple(int(c) for c in np.unravel_index(rank, procs)), {})
+    B, S, _ = inputs["arrays"]["x"].shape
+    plan = ep_layer_collectives(ep_cfg(1.25), mesh, B, S).stats().by_type
+    counted = json.loads((inputs["tmp"] / "ranks" / f"ep{rank}.json").read_text())
+    assert plan and counted == plan

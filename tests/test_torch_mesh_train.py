@@ -23,6 +23,9 @@ reference's.
   bitwise what one process holding every shard trains; a save from a
   2-process mesh writes a one-device save's array files byte for byte,
   and ``elastic.resume`` re-shards it onto another mesh in both processes.
+  The collective bytes each rank's steps counted
+  (``distributed.collectives.COUNTS``) equal the dry-run's plan of the
+  step (``launch/hlo_analysis.py::mesh_step_collectives``) for that rank.
 * ``restore(param_shardings=...)`` and ``elastic.resume`` onto another
   mesh in one process; ``launch.train --mesh 2x1 --resume`` bitwise a
   straight run, and resumed onto ``1x2`` within 1e-5.
@@ -238,6 +241,26 @@ def one_process_result(job, arrays) -> dict:
         for path, t in tree_leaves(gather_tree(tree, mesh, model.specs(mesh))):
             out[f"{name}/{kind}/" + "/".join(path)] = host_bits(t)
     return out
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_collective_plan_equals_the_gloo_counts(processes, world):
+    """Each rank's counted collective bytes, step by step and by type, equal
+    the plan for its place in the process grid."""
+    from repro_torch.launch.hlo_analysis import mesh_step_collectives
+    from repro_torch.launch.mesh import Mesh, _process_grid
+
+    for job in processes["worlds"][world]:
+        model = get_model(reduced(job["arch"]))
+        procs = _process_grid(job["mesh"], world)
+        for r in range(world):
+            log = json.loads((processes["outs"][world] / f"rank{r}.json").read_text())
+            coords = tuple(int(c) for c in np.unravel_index(r, procs))
+            mesh = Mesh(tuple(job["mesh"]), ("data", "model"), torch.device("cpu"), procs,
+                        coords, {})
+            plan = mesh_step_collectives(model, mesh).stats().by_type
+            assert plan and all(v > 0 for v in plan.values())
+            assert log[job["name"]]["collective_bytes"] == [plan] * job["steps"], (job, r)
 
 
 @pytest.mark.parametrize("world", [2, 4])

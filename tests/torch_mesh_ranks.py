@@ -1,6 +1,8 @@
 """Rank programs of ``tests/test_torch_mesh_train.py``'s spawned processes:
 only torch and the port, so a spawned rank starts without the reference."""
 import dataclasses
+import json
+import pathlib
 
 import numpy as np
 import torch
@@ -124,8 +126,9 @@ def ep_rank(rank, world, inputs, out_dir):
     layer = tree_of_prefix({k: v for k, v in data.items()}, "layer/")
     x, g = (torch.from_numpy(data[k]) for k in ("x", "g"))
     out = {}
-    got, _ = run_ep_layer(ModelConfig(**EP_CFG, dtype=torch.float32),
-                          make_mesh((2, 2), ("data", "model"), device="cpu"), layer, x, g)
+    got, log = run_ep_layer(ModelConfig(**EP_CFG, dtype=torch.float32),
+                            make_mesh((2, 2), ("data", "model"), device="cpu"), layer, x, g)
+    pathlib.Path(out_dir, f"ep{rank}.json").write_text(json.dumps(log["collective_bytes"]))
     out.update({"ep/" + k: host_bits(v) for k, v in got.items()})
     mesh8 = make_mesh((8,), ("data",), device="cpu")
     lo, n = mesh8.start("data"), mesh8.local("data")
