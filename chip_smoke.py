@@ -323,6 +323,29 @@ the script exits non-zero without printing a result):
    on the CPU on the same inputs and its ids and distances bitwise
    theirs (the two kernels' results at the cell's d = 768).
 
+16. tensor parallelism in the mesh train step (``models/shard_ctx``'s
+   ``enter``/``leave``, the split products of ``common.swiglu``,
+   ``transformer`` and ``attention``, ``collectives.ordered_sum``,
+   ``train/step.py::_MeshStep``), in PyTorch's deterministic mode:
+   qwen3-32b at full width (d = 5,120, 64 heads, 8 kv heads, d_ff 25,600,
+   vocab 151,936) cut to 2 of its 64 layers (``TRAIN_CUTS``), on a (1, 2)
+   mesh in two gloo processes sharing the card, each computing its model
+   shard's heads, MLP columns and vocab rows
+   (``launch/sharded.py::tp_check_rank``), at B = 2, S = 256: 2 float32
+   steps, then 1 step in the config's bf16.  Each is held to a one-device
+   step on the same weights and batch (run after the mesh steps, in each
+   process in turn, in bf16 in the first process alone): step 1's loss and
+   grad norm within ``TP_METRIC_TOL`` relative
+   (1e-6 in float32, 2^-8 in bf16), and in float32 each process's
+   parameters after step 1 within ``TP_PARAM_TOL`` (1e-6) and its peak
+   memory over the step at most ``TP_PEAK_RATIO`` of the one-device
+   step's (the bf16 ratio is reported); each step's seconds and its
+   ``gather_s``/``tp_s``/``reduce_s``, loss and grad norm finite and
+   equal on both processes, and the collective bytes each process counted
+   equal to ``mesh_step_collectives``'s plan in both dtypes.  The
+   products are ``torch.matmul`` (the reference's run outside any Pallas
+   kernel), so this path launches no kernel of the kernels line.
+
 Before the last lines the script checks that no process it started (the
 compiler, the spawned ranks, multiprocessing's resource tracker) is still
 running; the line before the kernels line gives the run's seconds and each
@@ -469,6 +492,15 @@ TRAIN_CUTS = {
         "(4 x 256 x 151,936 float32) 0.62 GB plus its gradient; the update's float32 "
         "temporaries bounded by its 64 M-element slices; predicted peak ~53 GB"),
     "rwkv6-1.6b": "whole (24 layers, d = 2048) at B = 4, S = 512 (4 chunks of 128)",
+    "qwen3-32b": (
+        "phase 16: n_layers 64 -> 2 at full width (d 5,120, 64 heads, 8 kv heads, d_ff "
+        "25,600, vocab 151,936), float32, B = 2, S = 256: 2,531,026,432 parameters; one "
+        "device holds params 10.1 GB + moments 20.2 GB + gradients 10.1 GB = ~40.5 GB, a "
+        "process of (1, 2) its blocks (1,265,526,272 parameters, every leaf but the norms "
+        "split) at 5.06 + 10.1 + 5.06 GB = ~20.2 GB; then one bf16 step of the same cell: "
+        "one device bf16 params 5.06 + grads 5.06 + float32 moments 20.2 GB = ~30.4 GB, a "
+        "process 2.53 + 2.53 + 10.1 GB plus its float32 gradient accumulator 5.06 GB = "
+        "~20.2 GB"),
     "qwen3-moe-235b-a22b": (
         "n_layers 94 -> 1 at full width, B = 2, S = 256: a layer is ~2.488 B parameters "
         "and embed/unembed ~1.245 B, ~3.73 B at 12 bytes each (bf16 params and grads, "
@@ -507,6 +539,24 @@ DRYRUN_CELLS = (("qwen1.5-4b", "train_4k"), ("qwen3-moe-235b-a22b", "decode_32k"
                 (None, "index"))                  # (a): --mesh single; None: --index-cell
 DRYRUN_TIMEOUT = 120           # (a): seconds the three dry-run subprocesses may take
 DRYRUN_KERNELS = ("expand_score", "beam_merge")   # (d)'s path: the index cell's step
+# phase 16: tensor parallelism in the mesh train step, 2 float32 steps, then 1 bf16 step
+TP_FULL = dict(arch="qwen3-32b", layers=2, mesh=(1, 2), batch=2, seq=256, seed=0,
+               runs=[dict(dtype="float32", steps=2, params=True),
+                     dict(dtype="bfloat16", steps=1, params=False)])
+# float32: the parameters after step 1 within the CPU tests' bound (under eps = 1e-3 a
+# parameter moves by about lr * g / eps, so this is a bound on the update as well);
+# bf16 parameters are not compared: one moves by a whole bf16 step, 2^-8 of its size,
+# wherever two float32 updates round to either side of one
+TP_PARAM_TOL = 1e-6
+# step 1's loss and grad norm against the one-device step's, relative: float32 as the CPU
+# tests hold the loss; bf16 one rounding of the result (bf16's unit roundoff, 2^-8)
+TP_METRIC_TOL = {"float32": 1e-6, "bfloat16": 2.0 ** -8}
+TP_PEAK_RATIO = 0.6            # float32: a process's peak over the one-device step's, at most
+TP_SPAWN_TIMEOUT = 120         # seconds the spawned ranks may take
+# the ranks fork from a server started with the script, which has imported these by then
+# (a spawned process spends 8-14 s importing torch, and remat's first backward 8-11 s
+# more importing torch._dynamo)
+TP_PRELOAD = ("repro_torch.launch.sharded", "torch._dynamo")
 # phases 13(c) and 14(d) leave their measured numbers here for phase 15
 MEASURED = {}
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
@@ -3476,6 +3526,93 @@ def phase15_dryrun(dev, smi) -> dict:
     return launches
 
 
+def phase16_tensor_parallel(dev, smi) -> None:
+    """Tensor parallelism at full width on the card (see the module
+    docstring)."""
+    import dataclasses
+    import math
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.hlo_analysis import mesh_step_collectives
+    from repro_torch.launch.mesh import Mesh, _process_grid
+    from repro_torch.launch.sharded import spawn_ranks, tp_check_rank
+    from repro_torch.models import get_model
+
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "tp_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    c = TP_FULL
+    torch.cuda.empty_cache()
+    wall = time.time()
+    spawn_ranks(tp_check_rank, MESH_PROCS,
+                (str(work), dict(c, opt=TRAIN_EPS_RULE, device="cuda",
+                                 threads=max(1, (os.cpu_count() or 2) // MESH_PROCS))),
+                backend="gloo", init_file=work / "init", timeout=TP_SPAWN_TIMEOUT,
+                start="forkserver")
+    spawn_s = time.perf_counter() - t0
+    logs = [json.loads((work / f"rank{r}.json").read_text()) for r in range(MESH_PROCS)]
+    procs = _process_grid(c["mesh"], MESH_PROCS)
+    runs, bad = [], {}
+    for i, want in enumerate(c["runs"]):
+        dtype = want["dtype"]
+        model = get_model(dataclasses.replace(get_arch(c["arch"]).config, n_layers=c["layers"],
+                                              dtype=getattr(torch, dtype)))
+        per = []
+        for r, lg in enumerate(logs):
+            run = lg["runs"][i]
+            coords = tuple(int(x) for x in divmod(r, procs[1]))
+            plan = mesh_step_collectives(model, Mesh(c["mesh"], ("data", "model"),
+                                                     torch.device("cpu"), procs, coords, {}),
+                                         batch=(c["batch"], c["seq"])).stats().by_type
+            one = run if want["params"] else logs[0]["runs"][i]   # bf16: rank 0 ran it
+            rel = {k: abs(run[k][0] - one[f"one_device_{k}"]) / abs(one[f"one_device_{k}"])
+                   for k in ("loss", "grad_norm")}
+            ratio = run["peak_memory_allocated"] / one["one_device_peak_memory_allocated"]
+            checks = dict(dtype=run["dtype"] == dtype,
+                          step1_vs_one_device=all(v <= TP_METRIC_TOL[dtype]
+                                                  for v in rel.values()),
+                          plan=all(b == plan for b in run["collective_bytes"]),
+                          finite=all(math.isfinite(v) for v in run["loss"] + run["grad_norm"]))
+            if want["params"]:
+                checks.update(params_step1=run["max_param_err"] <= TP_PARAM_TOL,
+                              peak=ratio <= TP_PEAK_RATIO)
+            per.append(dict(
+                rank=r, peak_memory_allocated=run["peak_memory_allocated"],
+                one_device_peak_memory_allocated=one["one_device_peak_memory_allocated"],
+                peak_ratio=ratio, param_bytes=run["param_bytes"],
+                max_param_err=run["max_param_err"],
+                ms_per_step=[x * 1e3 for x in run["seconds"]],
+                collective_ms=[{k.replace("_s", "_ms"): v * 1e3 for k, v in t.items()}
+                               for t in run["timing"]],
+                tokens_per_s=[c["batch"] * c["seq"] / x for x in run["seconds"]],
+                loss=run["loss"], grad_norm=run["grad_norm"],
+                one_device_loss=one["one_device_loss"],
+                one_device_grad_norm=one["one_device_grad_norm"], rel_err_step1=rel,
+                collective_bytes=run["collective_bytes"], plan_by_type=plan, checks=checks))
+            if not all(checks.values()):
+                bad[f"{dtype} rank {r}"] = checks
+        same = all(p["loss"] == per[0]["loss"] and p["grad_norm"] == per[0]["grad_norm"]
+                   for p in per)
+        if not same:
+            bad[f"{dtype} ranks"] = "the processes report different losses or grad norms"
+        runs.append(dict(dtype=dtype, steps=want["steps"], params=model.cfg.param_count(),
+                         per_process=per, ranks_agree=same))
+    emit(phase=16, card=smi, arch=c["arch"], layers=c["layers"], mesh=c["mesh"],
+         procs=MESH_PROCS, batch=c["batch"], seq=c["seq"], cut=TRAIN_CUTS[c["arch"]],
+         tolerance=dict(params_step1=f"float32 {TP_PARAM_TOL} under AdamWConfig(eps=1e-3)",
+                        step1_loss_and_grad_norm_rel=TP_METRIC_TOL,
+                        peak_ratio=f"float32 {TP_PEAK_RATIO}"),
+         runs=runs, seconds_at=[lg["marks"] for lg in logs],
+         started_after_s=[lg["started_at"] - wall for lg in logs], spawn_seconds=spawn_s,
+         seconds=time.perf_counter() - t0)
+    check(not bad, f"16: the tensor-parallel step's checks failed: {bad}")
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def result_on_cpu(res):
     """A card result's tensors on the CPU."""
     from repro_torch.core import SearchResult
@@ -3492,6 +3629,9 @@ def main() -> int:
         raise SystemExit("chip_smoke: no CUDA device is available")
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+    from repro_torch.launch.sharded import start_forkserver, stop_forkserver
+
+    start_forkserver(TP_PRELOAD)
 
     phase_seconds = {}
 
@@ -3521,6 +3661,8 @@ def main() -> int:
     training_launches = run(13, phase13_training, dev, smi)
     mesh_launches = run(14, phase14_mesh, dev, smi)
     dryrun_launches = run(15, phase15_dryrun, dev, smi)
+    run(16, phase16_tensor_parallel, dev, smi)
+    stop_forkserver()
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

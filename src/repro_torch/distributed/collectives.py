@@ -12,6 +12,8 @@ in the reference.
 
 :func:`all_gather` is the one-shot gather of the search merge.  On a gloo
 group CUDA tensors go through the host; NCCL takes them as they are.
+:func:`ordered_sum` is the tensor-parallel sum over ``model``: every
+shard's partial, added in shard order.
 
 :data:`COUNTS` adds up, by the reference's five collective types, the
 operand bytes this process hands to collectives that span more than one
@@ -118,6 +120,21 @@ def all_reduce_max(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
         if not isinstance(group, Planned):
             dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
     return out.to(t.device) if stage else out
+
+
+def ordered_sum(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The sum over every shard of ``axis`` of its partial, added in shard
+    order (``((p₀ + p₁) + p₂) + …``): ``x`` is ``(local, *shape)``, this
+    process's shards' partials; every process gets the ``shape`` sum.  An
+    all-gather of the partials, then the ordered sum, so the bits do not
+    depend on how many processes hold the shards.  Counted as an
+    all-reduce of the partials."""
+    with counted("all-reduce", _nbytes(x), spans(mesh, axis)):
+        parts = all_gather(x, mesh, axis).flatten(0, 1)        # (size, *shape)
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
 
 
 def ring_hop(blocks: tuple[torch.Tensor, ...], mesh: Mesh, axis: str) -> tuple[torch.Tensor, ...]:

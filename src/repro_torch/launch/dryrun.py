@@ -17,12 +17,15 @@ moves, a peer's block is the card's own).  A cell counts that card's work:
 
 * ``train``: the port's mesh step (``train/step.py::_MeshStep``) itself,
   from the card's parameter and moment blocks: the card's
-  ``global_batch / n_data`` rows with the whole gathered parameters
-  (along ``model`` the port splits storage and not compute, so the cards of
-  a data shard repeat its work), an MoE layer dispatching the card's tokens
-  as one shard of the step's global dispatch; then the gradients' float32
-  blocks, the global norm and AdamW on the card's blocks, with bf16 moments
-  for MoE configs (the reference's ``state_dtype``);
+  ``global_batch / n_data`` rows.  A decoder without MoE runs it
+  tensor-parallel: the card computes its ``model`` shard's heads, MLP
+  columns and vocab rows (the groups its specs split) with its blocks
+  gathered along the data axes, and the planned model-axis sums; every
+  other family gathers the whole parameters, so the cards of a data shard
+  repeat its work, an MoE layer dispatching the card's tokens as one shard
+  of the step's global dispatch.  Then the gradients' float32 blocks, the
+  global norm and AdamW on the card's blocks, with bf16 moments for MoE
+  configs (the reference's ``state_dtype``);
 * ``prefill``/``decode``: the card's rows of the request batch (all of them
   when the data axes do not divide it) with the whole parameters and
   decode state; the port has no mesh serve path, so the card gathers the
@@ -170,7 +173,7 @@ def build_cell(arch_name: str, shape_name, mesh: Mesh, *, cfg=None):
         b_bytes = sum(_block_bytes(t, card, bspec) for t in batch.values())
         donated = p_bytes + m_bytes + 4                   # params, moments, step: aliased
         mem = dict(argument=donated + b_bytes, output=donated + 4, alias=donated)
-        plan = mesh_step_collectives(model, card)
+        plan = mesh_step_collectives(model, card, batch=(B, S))
         return (lambda: _train_step(model, ocfg, card, batch)), mem, plan
 
     plan = CollectivePlan()

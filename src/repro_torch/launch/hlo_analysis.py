@@ -282,27 +282,81 @@ def _moe_layers(cfg) -> int:
     return cfg.n_layers // cfg.moe_every if cfg.moe_every > 1 else cfg.n_layers
 
 
-def mesh_step_collectives(model, mesh, *, microbatches: int = 1) -> CollectivePlan:
+def _tp_sums(plan: CollectivePlan, cfg, split, mesh, rows: int, S: int) -> None:
+    """One data shard's model-axis sums (``shard_ctx``'s ``enter`` and
+    ``leave``, ``collectives.ordered_sum``; the vocab max) in a forward and
+    backward of the tensor-parallel decoder: the embedding's rows; each
+    split region of a layer (attention, MLP) summed in the forward, again
+    in its checkpointed recompute, and its input gradient in the backward;
+    each loss chunk's max and its ``(2, rows, C)`` exp sums and gold
+    logits, in the forward and the recompute, and the chunk's input
+    gradient."""
+    local, item = mesh.local("model"), torch.empty((), dtype=cfg.dtype).element_size()
+    across = spans(mesh, "model")
+
+    def ordered(nbytes):
+        plan.add("all-reduce", "tp_sums", local * nbytes, across,
+                 local * nbytes * mesh.procs[mesh.axes.index("model")])
+
+    act = rows * S * cfg.d_model * item
+    passes = 3 if cfg.remat else 2
+    if "vocab" in split:
+        ordered(act)
+    for _ in range(cfg.n_layers):
+        for group in ("heads", "mlp"):
+            if group in split:
+                for _ in range(passes):
+                    ordered(act)
+    if "vocab" in split:
+        C = min(cfg.logits_chunk, S)
+        for _ in range(-(-S // C)):
+            for _ in range(2):                   # the forward and the recompute
+                plan.add("all-reduce", "tp_sums", rows * C * 4, across, rows * C * 4)
+                ordered(2 * rows * C * 4)
+            ordered(rows * C * cfg.d_model * item)
+
+
+def mesh_step_collectives(model, mesh, *, microbatches: int = 1,
+                          batch: tuple[int, int] | None = None) -> CollectivePlan:
     """One step of ``train/step.py::_MeshStep`` on ``mesh``, a process:
     the parameters' gather, each microbatch's MoE count exchanges (one
     ``(2, E)`` int64 vector a layer and a data shard) and loss sums, the
     float32 gradients' reduce, the global norm's two maxima (its scale and
-    its cells) over every axis, and the MoE's dropped count."""
+    its cells) over every axis, and the MoE's dropped count.  Where the
+    step is tensor-parallel (a decoder without MoE, several ``model``
+    shards) the gather is along the data axes only, each data shard's
+    model-axis sums are added (:func:`_tp_sums`; ``batch`` is the global
+    ``(B, S)``), and each partial leaf's float32 gradients are summed over
+    ``model`` before the data axes."""
+    from repro_torch.models import transformer
+
     cfg = model.cfg
     plan = CollectivePlan()
     shapes = dict(tree_leaves(model.shapes()))
     specs = dict(tree_leaves(model.specs(mesh)))
     dp = tuple(a for a in ("pod", "data") if a in mesh.axes)
     grid = [mesh.local(a) for a in dp]
+    tp = transformer.tp_plan(cfg, model.specs(mesh), mesh)
+    split, partial = tp or ((), ())
+    if tp and batch is None:
+        raise ValueError(f"{cfg.name}: the tensor-parallel step's plan needs the batch's (B, S)")
     for path, t in shapes.items():
         plan.gather("param_gather", block_shape(t.shape, mesh, specs[path]),
-                    t.element_size(), mesh, specs[path])
+                    t.element_size(), mesh, specs[path], keep=("model",) if tp else ())
     layers = _moe_layers(cfg)
     for _ in range(microbatches):
         for _ in range(layers):
             plan.gather("moe_exchange", grid + [2, cfg.n_experts], 8, mesh, P(*dp))
+        if tp:
+            rows = batch[0] // microbatches // math.prod(mesh.size(a) for a in dp)
+            for _ in range(math.prod(grid)):
+                _tp_sums(plan, cfg, split, mesh, rows, batch[1])
         plan.gather("loss_sums", grid + [3], 4, mesh, P(*dp))
     for path, t in shapes.items():
+        if path in partial:
+            nbytes = math.prod(grid) * mesh.local("model") * t.numel() * 4
+            plan.add("all-reduce", "grad_reduce", nbytes, spans(mesh, "model"),
+                     nbytes * mesh.procs[mesh.axes.index("model")])
         plan.reduce("grad_reduce", t.shape, mesh, specs[path], dp)
     cells = sum(math.prod(mesh.size(a) for a in expanded(
         block_shape(t.shape, mesh, specs[path]), mesh, specs[path], mesh.local)[1])

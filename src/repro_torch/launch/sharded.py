@@ -23,7 +23,9 @@ known inputs, to ``out_dir/rank{rank}.npz``.  The multi-process tests and
 (:func:`run_mesh_train`) and of the expert-parallel MoE layer
 (:func:`run_ep_layer`); those two functions are what one process holding
 every shard runs too, so the tests and ``chip_smoke.py`` hold the ranks'
-gathered results to one process's bit for bit.
+gathered results to one process's bit for bit.  :func:`tp_check_rank`
+holds the tensor-parallel mesh step at an arch's full width against the
+one-device step, a rank's blocks at a time.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ import datetime
 import os
 import pathlib
 import time
-from multiprocessing import resource_tracker
+from multiprocessing import forkserver, resource_tracker
 
 import numpy as np
 import torch
@@ -61,17 +63,20 @@ def _rank_main(target, rank: int, world: int, backend: str, init_file: str,
 
 
 def spawn_ranks(target, world: int, args: tuple = (), *, backend: str = "gloo",
-                init_file, timeout: float = 120.0) -> None:
+                init_file, timeout: float = 120.0, start: str = "spawn") -> None:
     """Run ``target(rank, world, *args)`` in ``world`` spawned processes of
     one process group (``init_file`` must not exist yet).  Raises
     ``RuntimeError`` when a process exits non-zero and ``TimeoutError``
     when they have not all ended after ``timeout`` seconds; either way no
     process is left running, the resource tracker that the launch started
-    included."""
+    included.  ``start`` is the multiprocessing start method: ``"spawn"``,
+    or ``"forkserver"``, whose processes fork from a server that has
+    already imported its preloaded modules (the caller starts and stops
+    that server)."""
     init_file = pathlib.Path(init_file)
     if init_file.exists():
         raise FileExistsError(f"{init_file} exists: a file store needs a fresh file")
-    ctx = mp.get_context("spawn")
+    ctx = mp.get_context(start)
     # the first spawned process starts multiprocessing's resource tracker,
     # which some Python 3.12 releases leave to outlive this process
     tracker_was_running = resource_tracker._resource_tracker._fd is not None
@@ -102,6 +107,20 @@ def spawn_ranks(target, world: int, args: tuple = (), *, backend: str = "gloo",
             p.join(timeout=10)
         if not tracker_was_running:
             resource_tracker._resource_tracker._stop()  # ends it and waits for it
+
+
+def start_forkserver(preload) -> None:
+    """Start multiprocessing's fork server for ``spawn_ranks(start=
+    "forkserver")``; it imports the modules of ``preload`` while the caller
+    goes on, and each process forked from it later starts with them."""
+    mp.set_forkserver_preload(list(preload))
+    forkserver.ensure_running()
+
+
+def stop_forkserver() -> None:
+    """End the fork server and the resource tracker that it started."""
+    forkserver._forkserver._stop()
+    resource_tracker._resource_tracker._stop()
 
 
 def collective_inputs(mesh, axis: str, width: int = 3):
@@ -393,6 +412,147 @@ def train_rank_program(rank: int, world: int, inputs: str | None, out_dir: str,
         else:
             arrays = {k: host_bits(t) for k, t in out.items()}
         np.savez(pathlib.Path(out_dir) / "rank0.npz", **arrays)
+    (pathlib.Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(log))
+
+
+def tp_check_rank(rank: int, world: int, out_dir: str, params: dict) -> None:
+    """One rank of a check of the tensor-parallel mesh step at an arch's
+    full width, once a run of ``params["runs"]``: the donated mesh steps
+    on ``params["mesh"]`` (``(data, model)``) from ``model.init`` at
+    ``seed`` over ``lm_batch``es in the run's dtype, its peak memory over
+    the first step (from the blocks and moments held); then the one-device
+    step from the same weights on the first batch, its loss, grad norm and
+    peak memory (from its parameters and moments held, less the blocks
+    kept).  Where the run has ``params`` each rank keeps its blocks after
+    the first step, runs the one-device step in turn and takes the largest
+    ``|mesh − one device|`` over them; otherwise rank 0 alone runs it.
+
+    ``params``: ``arch`` (its reduced config where ``reduced``), ``layers``
+    (the depth it is cut to), ``runs`` (``{"dtype": ..., "steps": ...,
+    "params": bool}`` each, in order), ``mesh``, ``batch``, ``seq``, ``opt``
+    (``AdamWConfig`` fields), ``seed``, ``device``, ``threads``.  Writes
+    ``out_dir/rank{rank}.json``: a record a run (its dtype, each step's
+    loss, grad norm, seconds, collective phases' seconds (``gather_s``,
+    ``tp_s``, ``reduce_s``) and collective operand bytes by type, the
+    one-device step's loss, grad norm and peak (rank 0's where the run has
+    no ``params``; peaks ``None`` off the card), the bytes of the blocks
+    held, the largest error or ``None``), and the
+    seconds from the program's start (``started_at``, wall clock) at which
+    each part ended (``marks``)."""
+    import dataclasses
+    import json
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import LMDataConfig, lm_batch
+    from repro_torch.distributed.collectives import counts, reset_counts
+    from repro_torch.kernels.util import resolve_device
+    from repro_torch.launch.shardings import shard_leaf, shard_tree
+    from repro_torch.models import get_model
+    from repro_torch.train import AdamWConfig, make_train_step, optim
+    from repro_torch.train.step import deterministic
+
+    start = time.perf_counter()
+    log = dict(runs=[], marks={}, started_at=time.time())
+
+    def mark(name):
+        _sync(dev)
+        log["marks"][name] = time.perf_counter() - start
+
+    torch.set_num_threads(params.get("threads") or max(1, (os.cpu_count() or 1) // world))
+    dev = resolve_device(params["device"])
+    on_card = dev.type == "cuda"
+    mark("device")
+    spec = get_arch(params["arch"])
+    base_cfg = dataclasses.replace(spec.reduced if params.get("reduced") else spec.config,
+                                   n_layers=params["layers"])
+    mesh = make_mesh(params["mesh"], ("data", "model"), device=dev)
+    ocfg = AdamWConfig(**params["opt"])
+    data = LMDataConfig(base_cfg.vocab, params["batch"], params["seq"])
+
+    def peak_from_here():
+        if on_card:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def held():
+        return torch.cuda.memory_allocated(dev) if on_card else 0
+
+    def peak(base):
+        """The peak since ``peak_from_here``, less ``base`` bytes held before."""
+        return torch.cuda.max_memory_allocated(dev) - base if on_card else None
+
+    def free():
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def run(dtype: str, steps: int, compare: bool) -> dict:
+        model = get_model(dataclasses.replace(base_cfg, dtype=getattr(torch, dtype)))
+        spec_of = dict(tree_leaves(model.specs(mesh)))
+        init = lambda: model.init(torch.Generator(device=dev).manual_seed(params["seed"]))  # noqa: E731
+        out = dict(dtype=dtype, loss=[], grad_norm=[], seconds=[], timing=[],
+                   collective_bytes=[])
+        base = held()
+        full = init()
+        mark(f"{dtype}_init")
+        blocks = shard_tree(full, mesh, model.specs(mesh))
+        del full
+        opt = optim.init(ocfg, blocks)
+        mark(f"{dtype}_blocks")
+        step = make_train_step(model, ocfg, mesh, donate=True)
+        out["param_bytes"] = sum(t.numel() * t.element_size() for _, t in tree_leaves(blocks))
+        for i in range(steps):
+            batch = lm_batch(data, i, device=dev)
+            step.timing = {}
+            if i == 0:
+                peak_from_here()
+            _sync(dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            blocks, opt, m = step(blocks, opt, batch)
+            out["loss"].append(float(m["loss"]))
+            _sync(dev)
+            out["seconds"].append(time.perf_counter() - t0)
+            out["grad_norm"].append(float(m["grad_norm"]))
+            out["timing"].append(dict(step.timing))
+            out["collective_bytes"].append(counts())
+            if i == 0:
+                out["peak_memory_allocated"] = peak(base)
+                first = {path: t.clone() for path, t in tree_leaves(blocks)} if compare else {}
+        mark(f"{dtype}_mesh_steps")
+        del blocks, opt, step, m
+        free()
+        out["max_param_err"] = None
+        for r in range(world if compare else 1):    # one rank's one-device step at a time
+            dist.barrier()
+            if r != rank:
+                continue
+            base = held()                  # the blocks kept from the mesh step
+            full = init()
+            o1 = optim.init(ocfg, full)
+            peak_from_here()
+            full, o1, m1 = make_train_step(model, ocfg, donate=True)(
+                full, o1, lm_batch(data, 0, device=dev))
+            out["one_device_peak_memory_allocated"] = peak(base)
+            out["one_device_loss"] = float(m1["loss"])
+            out["one_device_grad_norm"] = float(m1["grad_norm"])
+            mark(f"{dtype}_one_device_step")
+            del o1
+            if compare:
+                out["max_param_err"] = max(
+                    float((shard_leaf(t, mesh, spec_of[path]) - first[path]).abs().max())
+                    for path, t in tree_leaves(full))
+            del full
+            free()
+            mark(f"{dtype}_one_device_compared")
+        dist.barrier()
+        del first
+        free()
+        return out
+
+    with deterministic(dev):
+        for r in params["runs"]:
+            log["runs"].append(run(r["dtype"], r["steps"], r["params"]))
+    mark("end")
     (pathlib.Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(log))
 
 

@@ -23,7 +23,13 @@ over which this process's shards are consecutive.
 
 :func:`reduce_blocks` sums per-shard contributions to a leaf over mesh axes
 (the ring collectives' fixed order, so the bits do not depend on how many
-processes hold the shards) and leaves each process its block.
+processes hold the shards) and leaves each process its block.  The
+tensor-parallel step (``train/step.py``) gathers a leaf along the data axes
+only (``gather_leaf(..., axes=)``), so its contributions are already this
+process's block along ``model``, and a leaf replicated along ``model`` that
+feeds split compute comes with one partial contribution a ``model`` shard,
+summed in shard order before the data axes (``reduce_blocks(..., held=,
+partial=)``).
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ from typing import Sequence
 import torch
 
 from repro_torch.distributed.collectives import (
-    all_gather, ring_all_reduce, ring_reduce_scatter,
+    all_gather, ordered_sum, ring_all_reduce, ring_reduce_scatter,
 )
 from repro_torch.models.common import (
     ModelConfig, NamedSharding, P, PartitionSpec, batch_spec, mesh_shape, tree_leaves,
@@ -211,50 +217,64 @@ def shard_leaf(full: torch.Tensor, mesh, spec) -> torch.Tensor:
     return t.reshape(block_shape(full.shape, mesh, spec)).clone()
 
 
-def _full_shape(block: Sequence[int], mesh, spec) -> tuple[int, ...]:
-    out = []
-    for n, axes in zip(block, dim_axes(spec, len(block))):
-        out.append(n // math.prod(mesh.local(a) for a in axes)
-                   * math.prod(mesh.size(a) for a in axes))
-    return tuple(out)
+def _rescaled(shape: Sequence[int], mesh, spec, have, want) -> tuple[int, ...]:
+    """``shape``, each dimension's shards of its spec's axes rescaled from
+    ``have(axis)`` to ``want(axis)``."""
+    return tuple(n // math.prod(have(a) for a in axes) * math.prod(want(a) for a in axes)
+                 for n, axes in zip(shape, dim_axes(spec, len(shape))))
 
 
-def gather_leaf(block: torch.Tensor, mesh, spec) -> torch.Tensor:
+def gather_leaf(block: torch.Tensor, mesh, spec, axes: Sequence[str] | None = None
+                ) -> torch.Tensor:
     """The full leaf from every process's block (collective over the
     spec's axes that span several processes; ``block`` itself when this
-    process holds every shard)."""
-    if all(mesh.local(a) == mesh.size(a) for axes in dim_axes(spec, block.ndim)
-           for a in axes):
+    process holds every shard).  ``axes`` gathers only those of the spec's
+    axes, the others left as this process's block (the tensor-parallel
+    step gathers along the data axes only)."""
+    todo = [a for d in dim_axes(spec, block.ndim) for a in d
+            if (axes is None or a in axes) and mesh.local(a) != mesh.size(a)]
+    if not todo:
         return block
     exp, pos = expanded(block.shape, mesh, spec, mesh.local)
     t = block.reshape(exp)
     for a, p in pos.items():
-        if mesh.local(a) == mesh.size(a):
+        if a not in todo:
             continue
         g = all_gather(t, mesh, a)                    # (procs along a, *t.shape)
         t = g.movedim(0, p).flatten(p, p + 1)
-    return t.reshape(_full_shape(block.shape, mesh, spec))
+    return t.reshape(_rescaled(block.shape, mesh, spec, mesh.local,
+                               lambda a: mesh.size(a) if a in todo else mesh.local(a)))
 
 
-def reduce_blocks(contribs: torch.Tensor, mesh, spec, axes: Sequence[str]) -> torch.Tensor:
+def reduce_blocks(contribs: torch.Tensor, mesh, spec, axes: Sequence[str], *,
+                  held: Sequence[str] = (), partial: str | None = None) -> torch.Tensor:
     """This process's block of the sum of every shard's contribution to a
     leaf, summed over the shards along ``axes``.
 
     ``contribs`` is ``(local along axes[0], ..., local along axes[-1],
-    *full leaf)``: the contribution of each of this process's shards along
-    ``axes`` (row-major over them).  A spec axis outside ``axes`` holds
+    *leaf)``: the contribution of each of this process's shards along
+    ``axes`` (row-major over them), each the whole leaf, or along the spec
+    axes in ``held`` this process's block of it (the tensor-parallel
+    step's ``model``).  A spec axis outside ``axes`` and ``held`` holds
     equal contributions along it (compute replicated there): the block's
-    part of it is taken, nothing summed.  Each axis of ``axes`` that splits
-    the leaf is summed with :func:`ring_reduce_scatter` over its
-    sub-dimension; an axis that does not, with :func:`ring_all_reduce`.
-    The axes are summed last to first."""
+    part of it is taken, nothing summed.  ``partial`` names an axis along
+    which the leaf is replicated but each shard's contribution is partial
+    (a leaf that feeds split compute): ``contribs`` then has, after the
+    ``axes`` dimensions, one of this process's shards along it, summed
+    first with :func:`~repro_torch.distributed.collectives.ordered_sum`.
+    Each axis of ``axes`` that splits the leaf is summed with
+    :func:`ring_reduce_scatter` over its sub-dimension; an axis that does
+    not, with :func:`ring_all_reduce`.  The axes are summed last to
+    first."""
     axes = tuple(axes)
     k = len(axes)
+    if partial is not None:
+        contribs = ordered_sum(contribs.movedim(k, 0), mesh, partial)
     shape = contribs.shape[k:]
-    exp, pos = expanded(shape, mesh, spec, mesh.size)
+    exp, pos = expanded(shape, mesh, spec, lambda a: mesh.local(a) if a in held else mesh.size(a))
     t = contribs.reshape(contribs.shape[:k] + tuple(exp))
     for a, p in pos.items():
-        if a not in axes:
+        if a not in axes and a not in held:
             t = t.narrow(k + p, mesh.start(a), mesh.local(a))
     for j in range(k - 1, -1, -1):
         a = axes[j]
@@ -265,7 +285,9 @@ def reduce_blocks(contribs: torch.Tensor, mesh, spec, axes: Sequence[str]) -> to
             t = t.movedim(0, j + pos[a])
         else:
             t = ring_all_reduce(t, mesh, a)[0]
-    return t.reshape(block_shape(shape, mesh, spec))
+    return t.reshape(_rescaled(shape, mesh, spec,
+                               lambda a: mesh.local(a) if a in held else mesh.size(a),
+                               mesh.local))
 
 
 def shard_tree(tree, mesh, specs):
@@ -274,10 +296,10 @@ def shard_tree(tree, mesh, specs):
     return _map_paths(lambda path, leaf: shard_leaf(leaf, mesh, spec_of[path]), tree)
 
 
-def gather_tree(tree, mesh, specs):
+def gather_tree(tree, mesh, specs, axes: Sequence[str] | None = None):
     """:func:`gather_leaf` of every leaf of a tree of nested dicts."""
     spec_of = dict(tree_leaves(specs))
-    return _map_paths(lambda path, leaf: gather_leaf(leaf, mesh, spec_of[path]), tree)
+    return _map_paths(lambda path, leaf: gather_leaf(leaf, mesh, spec_of[path], axes), tree)
 
 
 def _map_paths(fn, tree, path: tuple = ()):

@@ -10,7 +10,10 @@ form (W_uk folded into the query), so a token's cache is
 ``kv_lora + rope_dim`` wide.
 
 The reference pins some tensors' sharding (``shard_ctx.constrain``); on one
-card that is the identity, and the port has no such calls.
+card that is the identity, and the port has no such calls.  Under a
+tensor-parallel context (``shard_ctx.tensor_parallel``, the mesh train
+step) the full-sequence paths compute this process's ``model`` shards'
+heads, ``wo`` row-parallel.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import shard_ctx
 from repro_torch.models.common import ModelConfig, rms_norm, rope
 
 
@@ -192,6 +196,8 @@ def gqa_attend(cfg: ModelConfig, p, x, positions, *, causal=True, kv=None,
     ``kv``: externally supplied (k, v) for cross-attention.
     ``cache``/``cache_len``: decode path — append one step, score vs cache.
     """
+    if kv is None and cache is None:
+        return _gqa_self(cfg, p, x, positions, causal)
     if kv is None:
         q, k, v = gqa_qkv(cfg, p, x, positions)
     else:
@@ -207,6 +213,43 @@ def gqa_attend(cfg: ModelConfig, p, x, positions, *, causal=True, kv=None,
 
     out = flash_attention(q, k, v, causal=causal)
     return _merge_heads(out, p["wo"]), (k, v)
+
+
+def _gqa_self(cfg: ModelConfig, p, x, positions, causal: bool):
+    """Self-attention over ``x``: ``(out, (k, v))``.  Under a context that
+    splits "heads" each local shard takes its query heads (``wq``, ``bq``)
+    and the kv heads they read: its block of ``wk``/``wv`` where the kv
+    heads are split too, else those heads of its copy of the replicated
+    leaves (query head ``h`` reads kv head ``h // (H / KV)``); ``wo`` is
+    row-parallel, the shards' partials summed over ``model``.  The (k, v)
+    returned are the last local shard's."""
+    tp = shard_ctx.split("heads")
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    hs, group = H // tp.size, H // KV
+    kv_split = "kv_heads" in tp.split
+    norms = ("q_norm", "k_norm") if cfg.qk_norm else ()
+    kv_names = ("wk", "wv") + (("bk", "bv") if cfg.qkv_bias else ())
+    per = {"wq": tp.shards(p["wq"], -2), "wo": tp.shards(p["wo"], -3),
+           **({"bq": tp.shards(p["bq"], -2)} if cfg.qkv_bias else {}),
+           **{k: tp.copies(p[k]) for k in norms},
+           **{k: (tp.shards(p[k], -2) if kv_split else tp.copies(p[k])) for k in kv_names}}
+    parts = []
+    for j, xj in enumerate(tp.enter(x)):
+        pj = {k: v[j] for k, v in per.items()}
+        h0 = tp.shard(j) * hs
+        reads = [h // group for h in range(h0, h0 + hs)]     # the kv head of each query head
+        lo = reads[0]                                         # the shard's first kv head
+        reads = [r - lo for r in reads]
+        if not kv_split:
+            for k in kv_names:
+                pj[k] = pj[k][..., lo:lo + reads[-1] + 1, :]
+        q, k, v = gqa_qkv(cfg, pj, xj, positions)
+        if reads != [h // (hs // k.shape[2]) for h in range(hs)]:   # not expand_kv's order
+            idx = torch.tensor(reads, device=k.device)
+            k, v = k.index_select(2, idx), v.index_select(2, idx)
+        out = flash_attention(q, k, v, causal=causal)
+        parts.append(_merge_heads(out, pj["wo"]))
+    return tp.leave(parts), (k, v)
 
 
 def _scatter_step(cache: torch.Tensor, step: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
@@ -255,16 +298,29 @@ def mla_queries(cfg: ModelConfig, p, x, positions):
 
 
 def mla_attend_train(cfg: ModelConfig, p, x, positions):
-    """Full-sequence MLA: per-head k/v materialised from the latents."""
-    c_kv, k_rope = mla_latents(cfg, p, x, positions)
-    q_nope, q_rope = mla_queries(cfg, p, x, positions)
-    k_nope = _heads(c_kv, p["w_uk"])
-    v = _heads(c_kv, p["w_uv"])
-    k_rope_h = k_rope[:, :, None, :].expand(k_rope.shape[:2] + (cfg.n_heads, cfg.rope_head_dim))
-    q_full = torch.cat([q_nope, q_rope], dim=-1)
-    k_full = torch.cat([k_nope, k_rope_h], dim=-1)
-    out = flash_attention(q_full, k_full, v, causal=True)
-    return _merge_heads(out, p["wo"]), (c_kv, k_rope)
+    """Full-sequence MLA: per-head k/v materialised from the latents.
+    Under a context that splits "heads" each local shard computes the
+    latents with its copies of the replicated down-projections and norms,
+    and its heads with its blocks of the up-projections; ``wo`` is
+    row-parallel.  The latents returned are the last local shard's."""
+    tp = shard_ctx.split("heads")
+    hs = cfg.n_heads // tp.size
+    per = {**{k: tp.copies(p[k]) for k in ("w_dq", "q_norm", "w_dkv", "kv_norm")},
+           **{k: tp.shards(p[k], -2) for k in ("w_uq", "w_uk", "w_uv")},
+           "wo": tp.shards(p["wo"], -3)}
+    parts = []
+    for j, xj in enumerate(tp.enter(x)):
+        pj = {k: v[j] for k, v in per.items()}
+        c_kv, k_rope = mla_latents(cfg, pj, xj, positions)
+        q_nope, q_rope = mla_queries(cfg, pj, xj, positions)
+        k_nope = _heads(c_kv, pj["w_uk"])
+        v = _heads(c_kv, pj["w_uv"])
+        k_rope_h = k_rope[:, :, None, :].expand(k_rope.shape[:2] + (hs, cfg.rope_head_dim))
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        k_full = torch.cat([k_nope, k_rope_h], dim=-1)
+        out = flash_attention(q_full, k_full, v, causal=True)
+        parts.append(_merge_heads(out, pj["wo"]))
+    return tp.leave(parts), (c_kv, k_rope)
 
 
 def mla_attend_decode(cfg: ModelConfig, p, x, positions, cache, cache_len):

@@ -360,7 +360,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 
 def swiglu(x, w_gate, w_up, w_down):
-    g = x @ w_gate
-    u = x @ w_up
-    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-    return h @ w_down
+    """The gated MLP.  Under a tensor-parallel context that splits ``mlp``
+    (``shard_ctx``), ``w_gate``/``w_up`` are column-parallel and ``w_down``
+    row-parallel: each local shard's columns give its partial, and the
+    partials are summed over ``model`` in shard order."""
+    from repro_torch.models import shard_ctx
+
+    tp = shard_ctx.split("mlp")
+    parts = []
+    for xj, wg, wu, wd in zip(tp.enter(x), tp.shards(w_gate, -1), tp.shards(w_up, -1),
+                              tp.shards(w_down, -2)):
+        h = torch.nn.functional.silu((xj @ wg).float()).to(x.dtype) * (xj @ wu)
+        parts.append(h @ wd)
+    return tp.leave(parts)

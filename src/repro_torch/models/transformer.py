@@ -12,6 +12,7 @@ one chunk at a time, in the forward and, recomputed, in the backward.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple
 
 import torch
@@ -20,7 +21,10 @@ import torch.nn.functional as F
 from repro_torch.kernels.util import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.common import ModelConfig, checkpointed, remat, rms_norm, swiglu, tree_map
+from repro_torch.models import shard_ctx
+from repro_torch.models.common import (
+    ModelConfig, checkpointed, remat, rms_norm, swiglu, tree_leaves, tree_map,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -84,6 +88,65 @@ def build_params(cfg: ModelConfig, b):
     return params
 
 
+# ---------------------------------------------------------------------------
+# Tensor parallelism
+# ---------------------------------------------------------------------------
+def _split_dims(cfg: ModelConfig) -> dict[tuple, tuple[str, int]]:
+    """Each leaf a tensor-parallel step may split along ``model``: its
+    product group (``shard_ctx.GROUPS``) and the dimension of the split."""
+    a, m = ("blocks", "attn"), ("blocks", "mlp")
+    dims = {("embed",): ("vocab", 0), ("unembed",): ("vocab", 1),
+            a + ("wo",): ("heads", 1), m + ("w_up",): ("mlp", 2), m + ("w_down",): ("mlp", 1),
+            m + ("w_gate",): ("mlp", 2)}
+    if cfg.mla:
+        dims.update({a + (k,): ("heads", 2) for k in ("w_uq", "w_uk", "w_uv")})
+    else:
+        dims.update({a + ("wq",): ("heads", 2), a + ("wk",): ("kv_heads", 2),
+                     a + ("wv",): ("kv_heads", 2), a + ("bq",): ("heads", 1),
+                     a + ("bk",): ("kv_heads", 1), a + ("bv",): ("kv_heads", 1)})
+    return dims
+
+
+def tp_plan(cfg: ModelConfig, specs, mesh) -> tuple[frozenset, frozenset] | None:
+    """How the mesh step splits ``cfg``'s products over ``mesh``'s ``model``
+    axis: ``None`` unless ``cfg`` is a decoder without MoE and ``model`` has
+    several shards; else ``(split groups, partial leaves)`` under the
+    parameters' ``specs``: the product groups whose leaves the specs split
+    along ``model``, and the paths of the leaves replicated along ``model``
+    that feed split compute (their shards' gradients are partial: the
+    attention's norm gammas, ``wk``/``wv`` and their biases where the kv
+    heads are not split, MLA's latent projections).  Raises ``ValueError``
+    naming a leaf whose spec the tensor-parallel path cannot serve."""
+    if (cfg.family != "decoder" or cfg.moe or "model" not in mesh.axes
+            or mesh.size("model") == 1):
+        return None
+    dims = _split_dims(cfg)
+    seen: dict[str, bool] = {}
+    for path, spec in tree_leaves(specs):
+        at = [i for i, e in enumerate(spec)
+              if e == "model" or (isinstance(e, tuple) and "model" in e)]
+        group, dim = dims.get(path, (None, None))
+        if at and (group is None or at != [dim] or spec[dim] != "model"):
+            raise ValueError(f"the tensor-parallel step cannot serve {'/'.join(path)} under "
+                             f"its spec {spec}")
+        if group is not None and seen.setdefault(group, bool(at)) != bool(at):
+            raise ValueError(f"the tensor-parallel step cannot serve {'/'.join(path)} under "
+                             f"its spec {spec}: the other {group} leaves are "
+                             f"{'' if seen[group] else 'not '}split along model")
+    split = frozenset(g for g, s in seen.items() if s)
+    if "kv_heads" in split and "heads" not in split:
+        raise ValueError("the tensor-parallel step cannot serve blocks/attn/wk: its kv heads "
+                         "are split along model, its query heads are not")
+    names: tuple = ()
+    if "heads" in split and cfg.mla:
+        names = ("w_dq", "q_norm", "w_dkv", "kv_norm")
+    elif "heads" in split:
+        names = ("q_norm", "k_norm") if cfg.qk_norm else ()
+        if "kv_heads" not in split:
+            names += ("wk", "wv") + (("bk", "bv") if cfg.qkv_bias else ())
+    return split, frozenset(("blocks", "attn", k) for k in names)
+
+
 def layer(blocks, i: int):
     """The parameters (or cache) of layer ``i`` of a stacked tree."""
     if isinstance(blocks, tuple):
@@ -121,9 +184,15 @@ def _ffn(cfg: ModelConfig, p_l, h):
         return moe_lib.moe_ffn(cfg, p_l["moe"], h)
     mlp = p_l["mlp"]
     if "w_gate" not in mlp:
-        # jax.nn.gelu's default is the tanh approximation
-        a = F.gelu((h @ mlp["w_up"]).float(), approximate="tanh").to(h.dtype)
-        return a @ mlp["w_down"], 0.0
+        # jax.nn.gelu's default is the tanh approximation; under a context
+        # that splits "mlp", w_up is column- and w_down row-parallel
+        tp = shard_ctx.split("mlp")
+        parts = []
+        for hj, wu, wd in zip(tp.enter(h), tp.shards(mlp["w_up"], -1),
+                              tp.shards(mlp["w_down"], -2)):
+            a = F.gelu((hj @ wu).float(), approximate="tanh").to(h.dtype)
+            parts.append(a @ wd)
+        return tp.leave(parts), 0.0
     return swiglu(h, mlp["w_gate"], mlp["w_up"], mlp["w_down"]), 0.0
 
 
@@ -172,7 +241,19 @@ def layer_order(cfg: ModelConfig, params) -> list:
 
 
 def embed_tokens(cfg: ModelConfig, params, tokens, embeds=None):
-    x = params["embed"][tokens.long()]
+    """The token rows of ``embed``.  Under a context that splits "vocab"
+    each local shard looks up the ids in its rows (0 for the others) and
+    the rows are summed over ``model``: exactly one shard adds a non-zero
+    row, so the sum is exact."""
+    tp = shard_ctx.split("vocab")
+    if tp.mesh is None:
+        x = params["embed"][tokens.long()]
+    else:
+        parts = []
+        for j, w in enumerate(tp.shards(params["embed"], 0)):
+            local, inside = _vocab_ids(tokens, tp.shard(j), w.shape[0])
+            parts.append(torch.where(inside[..., None], w[local], 0.0))
+        x = tp.leave(parts)
     if embeds is not None:
         # early fusion: precomputed modality embeddings are prepended
         x = torch.cat([embeds.to(x.dtype), x], dim=1)
@@ -211,6 +292,33 @@ def _chunk_ce(hc, yc, mc, w):
     return torch.sum((lse - gold) * mc)
 
 
+def _vocab_ids(ids, shard: int, rows: int):
+    """``ids`` as rows of vocab shard ``shard`` (``rows`` a shard), clamped
+    into it, and whether each lies in it."""
+    local = ids.long() - shard * rows
+    inside = (local >= 0) & (local < rows)
+    return local.clamp(0, rows - 1), inside
+
+
+def _chunk_ce_split(tp, hc, yc, mc, w):
+    """:func:`_chunk_ce` with the vocab split over ``model``: each local
+    shard's (B, C, V/size) float32 logits; the max over every shard
+    (detached: the logsumexp's gradient does not depend on it); the
+    shards' sums of ``exp(logit − max)`` and their gold logits (the shard
+    that holds a label gives its logit, the others 0), summed over
+    ``model`` in shard order."""
+    logits = [(hj @ wj).float() for hj, wj in zip(tp.enter(hc), tp.shards(w, -1))]
+    m = tp.max([lg.amax(dim=-1) for lg in logits])
+    parts = []
+    for j, lg in enumerate(logits):
+        local, inside = _vocab_ids(yc, tp.shard(j), lg.shape[-1])
+        gold = torch.gather(lg, -1, local[..., None])[..., 0]
+        parts.append(torch.stack([torch.exp(lg - m[..., None]).sum(dim=-1),
+                                  torch.where(inside, gold, 0.0)]))
+    s, gold = tp.leave(parts)
+    return torch.sum((m + torch.log(s) - gold) * mc)
+
+
 def lm_loss(cfg: ModelConfig, params, hidden, labels, mask):
     """Chunked cross-entropy: the sequence in ``logits_chunk`` chunks (the
     last padded), each chunk's masked sum added in chunk order, over
@@ -224,9 +332,11 @@ def lm_loss(cfg: ModelConfig, params, hidden, labels, mask):
     y = F.pad(labels, (0, pad)).reshape(B, n, C)
     m = F.pad(mask, (0, pad)).reshape(B, n, C)
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    tp = shard_ctx.split("vocab")
+    chunk = _chunk_ce if tp.mesh is None else functools.partial(_chunk_ce_split, tp)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(n):
-        total = total + checkpointed(_chunk_ce, h[:, i], y[:, i], m[:, i], w)
+        total = total + checkpointed(chunk, h[:, i], y[:, i], m[:, i], w)
     return total / torch.clamp_min(torch.sum(mask), 1.0)
 
 

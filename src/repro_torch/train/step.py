@@ -12,7 +12,8 @@ semantics), up to the order of float sums:
   under the leaf's spec (``Model.specs(mesh)``; ``launch/shardings.py``):
   ``embed`` over the data axes (FSDP), heads/mlp/vocab/expert over
   ``model``;
-* a step gathers the whole parameters, splits the global batch into
+* a step gathers the parameters (along the data axes only under tensor
+  parallelism, below; else whole), splits the global batch into
   microbatches and each microbatch over the data shards (dim 0), and runs
   each of this process's data shards as its own forward and backward — so
   a shard computes the same bits whichever process holds it, and 1, 2 or 4
@@ -27,14 +28,30 @@ semantics), up to the order of float sums:
 * the gradients are summed over the data shards with the ring
   collectives (``launch.shardings.reduce_blocks``: a reduce-scatter over
   the leaf's data sub-dimension, an all-reduce for a leaf not split over
-  the data axes), in float32, and each process keeps its block;
+  the data axes), in float32 accumulators the size of the gathered
+  parameters, and each process keeps its block;
 * the global norm is summed over the leaves' shard cells in a fixed order,
   and AdamW updates the blocks.
 
-Along ``model`` the port splits storage and not compute: the processes of
-one data shard compute the same rows with the whole parameters.  XLA
-splits the products there; PyTorch has no partitioner that does, and
-tensor parallelism is later work (ROADMAP).
+**Along ``model``**, the decoder family without MoE (qwen1.5-4b, qwen3-32b,
+starcoder2-15b, chameleon-34b, minicpm3-4b) splits its products, as XLA's
+partitioner splits the reference's (Megatron's tensor parallelism,
+``models/shard_ctx.py``): on a mesh whose ``model`` axis has several
+shards, each process computes its ``model`` shards' heads, MLP columns and
+vocab rows — the groups its leaves' specs split (``transformer.tp_plan``;
+a leaf whose spec it cannot serve raises) — with its blocks gathered along
+the data axes only.  The split regions' partials are summed over ``model``
+in shard order (``collectives.ordered_sum``); a process holding several
+``model`` shards runs them one after another in each region, each on its
+own tensors, so 1, 2 or 4 processes still give the same bits.  A leaf
+replicated along ``model`` that feeds split compute (attention's norm
+gammas, ``wk``/``wv`` where the kv heads do not split, MLA's latent
+projections) is handed to the model with one copy a local shard, and its
+shards' partial gradients are summed over ``model`` before the data axes.
+A checkpointed block's recompute runs whole there (no early stop), so
+its sums run as often on every process.  The MoE archs, rwkv6, zamba2 and
+encdec gather the whole parameters: along ``model`` they split storage
+and not compute (ROADMAP).
 
 Determinism.  The backward passes hold float scatter-adds (the embedding
 lookup's, the MoE dispatch's and combine's), which run as atomics on the
@@ -197,6 +214,17 @@ class _Exchange:
         return out
 
 
+@contextlib.contextmanager
+def _tp_scope(tp):
+    """The model runs under ``tp``, its checkpointed recomputes whole."""
+    from torch.utils.checkpoint import set_checkpoint_early_stop
+
+    from repro_torch.models import shard_ctx
+
+    with shard_ctx.tensor_parallel(tp), set_checkpoint_early_stop(False):
+        yield
+
+
 def _in_threads(fns: list, barrier: threading.Barrier) -> list:
     """``[f() for f in fns]``, each in a thread of its own (inline for one);
     an error aborts ``barrier`` (so the other threads stop waiting at it)
@@ -240,9 +268,19 @@ class _MeshStep:
         self.shards = mesh.local_shards(self.dp_axes) if self.dp_axes else [0]
         self.timeout = GROUP_TIMEOUT.total_seconds()
         # a dict here collects each step's seconds in its collective phases
-        # (the parameters' gather, the gradients' reduce and the norm),
-        # each synchronised with the device; None records nothing
+        # (the parameters' gather, the model-axis sums of the split products,
+        # the gradients' reduce and the norm), each synchronised with the
+        # device; None records nothing
         self.timing = None
+        # the tensor-parallel context (the decoder family without MoE on a
+        # mesh whose model axis has several shards), else None
+        from repro_torch.models import shard_ctx, transformer
+
+        plan = transformer.tp_plan(self.cfg, self.specs, mesh)
+        self.tp, self.partial = None, frozenset()
+        if plan is not None:
+            self.tp = shard_ctx.TensorParallel(mesh, plan[0], self._timed)
+            self.partial = plan[1]
 
     @contextlib.contextmanager
     def _timed(self, name: str):
@@ -271,6 +309,24 @@ class _MeshStep:
         return ({k: v[m * mb:(m + 1) * mb] for k, v in batch.items()}, mb,
                 mb // self.n_data)
 
+    def _gather(self, params):
+        """The parameters a shard computes with: whole, or under tensor
+        parallelism gathered along the data axes only."""
+        from repro_torch.launch.shardings import gather_tree
+
+        return gather_tree(params, self.mesh, self.specs,
+                           self.dp_axes if self.tp is not None else None)
+
+    def _live(self, path, p, grads: bool) -> torch.Tensor:
+        """A leaf as the model takes it: detached, requiring grad when
+        ``grads``; a partial leaf (``transformer.tp_plan``) with one copy a
+        local ``model`` shard after its layer dimension, so that each
+        shard's gradient stays its own."""
+        p = p.detach()
+        if path in self.partial:
+            p = p.unsqueeze(1).expand((p.shape[0], self.tp.local) + tuple(p.shape[1:]))
+        return p.requires_grad_(grads)
+
     def _run_shards(self, full, mb: dict, rows: int, grads: bool) -> list:
         """Each of this process's data shards of one microbatch:
         ``(shard loss, ce part, aux part, dropped, grads | None)``."""
@@ -286,8 +342,13 @@ class _MeshStep:
             ctx = (moe.data_shard(moe.DataShard(g, self.n_data, tokens,
                                                 lambda t: exchange(q, t)))
                    if exchange is not None else contextlib.nullcontext())
-            with ctx as ds, torch.set_grad_enabled(grads):
-                live = tree_map(lambda p: p.detach().requires_grad_(grads), full)
+            # under tensor parallelism a checkpointed block's recompute runs
+            # whole (no early stop), so its model-axis sums run as often on
+            # every process and every torch version
+            tp = contextlib.nullcontext() if self.tp is None else _tp_scope(self.tp)
+            with ctx as ds, tp, torch.set_grad_enabled(grads):
+                live = optim.tree_from_paths(full, {path: self._live(path, p, grads)
+                                                    for path, p in tree_leaves(full)})
                 _, metrics = self.model.loss(live, sb)
                 ce = metrics["ce"] * (torch.clamp_min(torch.sum(sb["mask"]), 1.0) / denom)
                 aux = torch.as_tensor(metrics["aux"], dtype=torch.float32, device=ce.device)
@@ -360,10 +421,10 @@ class _MeshStep:
 
     # ------------------------------------------------------------- step
     def __call__(self, params, opt_state, batch):
-        from repro_torch.launch.shardings import gather_tree, reduce_blocks
+        from repro_torch.launch.shardings import reduce_blocks
 
         with self._timed("gather_s"):
-            full = gather_tree(params, self.mesh, self.specs)
+            full = self._gather(params)
         acc: list[dict] = [dict() for _ in self.shards]
         sums, dropped = [], [0] * len(self.shards)
         for m in range(self.microbatches):
@@ -380,11 +441,15 @@ class _MeshStep:
             del out
         del full
         blocks = {}
+        held = ("model",) if self.tp is not None else ()
         with self._timed("reduce_s"):
             for path, spec in self.spec_of.items():
                 contribs = torch.stack([a.pop(path) for a in acc])
+                if path in self.partial:     # (shards, L, local model, ...) -> model first
+                    contribs = contribs.movedim(2, 1)
                 g = reduce_blocks(contribs.reshape(self.grid + list(contribs.shape[1:])),
-                                  self.mesh, spec, self.dp_axes)
+                                  self.mesh, spec, self.dp_axes, held=held,
+                                  partial="model" if path in self.partial else None)
                 blocks[path] = g.div_(self.microbatches) if self.microbatches > 1 else g
                 del contribs
             gnorm = self._global_norm(blocks)
@@ -404,9 +469,7 @@ class _MeshStep:
         return new_params, new_opt, {**metrics, **stats}
 
     def evaluate(self, params, batch) -> dict:
-        from repro_torch.launch.shardings import gather_tree
-
-        full = gather_tree(params, self.mesh, self.specs)
+        full = self._gather(params)
         mb, _, rows = self._rows(batch, 0)
         out = self._run_shards(full, mb, rows, grads=False)
         loss, ce, aux = self._sum_over_shards([o[:3] for o in out])

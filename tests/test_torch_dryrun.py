@@ -11,7 +11,9 @@ index cell (n = 4,096, d = 32) on (2, 2), and reports each cell's
 * The card's argument bytes equal the reference's exactly, for the three
   cells on (2, 2).
 * The train cells' FLOPs on (2, 1) (no model split: both packages compute
-  the same products a device) lie within 5 % of the reference's.  For the
+  the same products a device) lie within 5 % of the reference's, and the
+  dense cell's on (2, 2), where both split the products over ``model``
+  (the port's tensor-parallel step).  For the
   MoE cell the port's count is first reduced by a stated term: the port's
   mesh step dispatches a data shard's tokens into the step's global
   capacity (``capacity(cfg, B·S)`` slots an expert, ``models/moe.py``'s
@@ -292,4 +294,13 @@ def test_train_flops_within_five_percent_on_2x1(reference, arch):
         per_pass = 3 * 2 * cfg.n_experts * extra * cfg.d_model * cfg.moe_d_ff
         got -= per_pass * (4 if cfg.remat else 3) * cfg.n_layers
     want = reference()[f"{arch}@2x1"]["flops"]
+    assert abs(got - want) <= 0.05 * want, (got, want)
+
+
+def test_train_flops_within_five_percent_on_2x2(reference):
+    """The dense cell on (2, 2) runs the tensor-parallel step: a card
+    computes its model shard's heads, MLP columns and vocab rows, as the
+    reference's partitioned step splits its products over ``model``."""
+    got = port_cell("qwen1.5-4b", (2, 2))["flops"]
+    want = reference()["qwen1.5-4b@2x2"]["flops"]
     assert abs(got - want) <= 0.05 * want, (got, want)

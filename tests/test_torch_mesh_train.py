@@ -13,19 +13,24 @@ reference's.
   towers, whose gradients ``tests/test_torch_grads_recurrent.py`` holds
   10× wider than the dense ones: the port's one-device step itself lies
   1.4e-6 from the reference's on zamba2), on masked batches, for
-  reduced qwen1.5-4b, qwen3-moe (whose router drops assignments here),
-  rwkv6 and zamba2; the MoE's dropped assignments equal the one-device
+  reduced qwen1.5-4b, qwen3-32b, minicpm3-4b, starcoder2-15b and
+  chameleon-34b (tensor-parallel along ``model``; also on ``(1, 4)``,
+  where qwen3-32b's and starcoder2-15b's kv heads stay replicated),
+  qwen3-moe (whose router drops assignments here), rwkv6 and zamba2;
+  the MoE's dropped assignments equal the one-device
   dispatch's (global capacity, ranks across shards) and its aux within
   1e-6 relative of the reference's.
 * Microbatches 2 on a mesh against the one-device step with 2; the eval
   step.
 * 2 and 4 gloo processes (spawned, a file store, a time limit) train
-  bitwise what one process holding every shard trains; a save from a
+  bitwise what one process holding every shard trains, the dense decoders
+  tensor-parallel on (2, 2) and (1, 2) among them; a save from a
   2-process mesh writes a one-device save's array files byte for byte,
   and ``elastic.resume`` re-shards it onto another mesh in both processes.
   The collective bytes each rank's steps counted
   (``distributed.collectives.COUNTS``) equal the dry-run's plan of the
-  step (``launch/hlo_analysis.py::mesh_step_collectives``) for that rank.
+  step (``launch/hlo_analysis.py::mesh_step_collectives``) for that rank,
+  the model-axis sums of the tensor-parallel step included.
 * ``restore(param_shardings=...)`` and ``elastic.resume`` onto another
   mesh in one process; ``launch.train --mesh 2x1 --resume`` bitwise a
   straight run, and resumed onto ``1x2`` within 1e-5.
@@ -63,8 +68,13 @@ from torch_towers import (
 )
 
 REF_STEP_TOL = {"rwkv6": 1e-5, "zamba2": 1e-5}     # by family; 1e-6 otherwise
-ARCHS = ("qwen1.5-4b", "qwen3-moe-235b-a22b", "rwkv6-1.6b", "zamba2-2.7b")
+ARCHS = ("qwen1.5-4b", "qwen3-32b", "minicpm3-4b", "starcoder2-15b", "chameleon-34b",
+         "qwen3-moe-235b-a22b", "rwkv6-1.6b", "zamba2-2.7b")
 MESHES = ((2, 2), (4, 1), (1, 2))
+# the tensor-parallel archs also on (1, 4), where reduced qwen3-32b's 2 kv heads and
+# starcoder2-15b's stay replicated along model (their wk/wv gradients partial)
+TP_ARCHS = ("qwen1.5-4b", "qwen3-32b", "minicpm3-4b", "starcoder2-15b", "chameleon-34b")
+TP_MESHES = MESHES + ((1, 4),)
 B, S = 4, 16
 TIMEOUT = 150.0
 
@@ -146,7 +156,7 @@ def test_mesh_step_matches_one_device_and_reference(arch):
     drops = one_device_drops(model, params, batch) if cfg.moe else None
     if cfg.moe:
         assert drops > 0, "the test batch should make the router drop assignments"
-    for shape in MESHES:
+    for shape in TP_MESHES if arch in TP_ARCHS else MESHES:
         got, m = mesh_step(model, shape, params, batch)
         assert max_err(got, p1) <= 1e-6, (arch, shape)
         assert_trees_close(got, ref_params, atol=REF_STEP_TOL.get(cfg.family, 1e-6), rtol=0,
@@ -186,12 +196,14 @@ def test_mesh_microbatches_and_eval():
 # ------------------------------------------------------------ processes
 @pytest.fixture(scope="module")
 def processes(tmp_path_factory):
-    """Worlds 2 and 4 side by side: two reduced archs' 2 mesh steps on
-    (2, 2) (world 2 also on (4, 1)), and world 2's save and resume."""
+    """Worlds 2 and 4 side by side: three reduced archs' 2 mesh steps on
+    (2, 2), the dense one tensor-parallel (world 2 also qwen1.5-4b on
+    (4, 1) and minicpm3-4b tensor-parallel on (1, 2), its model shards one
+    a process), and world 2's save and resume."""
     tmp = tmp_path_factory.mktemp("mesh_procs")
     jobs, arrays = [], {}
     for arch, shape in (("qwen3-moe-235b-a22b", (2, 2)), ("zamba2-2.7b", (2, 2)),
-                        ("qwen1.5-4b", (4, 1))):
+                        ("qwen1.5-4b", (4, 1)), ("qwen3-32b", (2, 2)), ("minicpm3-4b", (1, 2))):
         cfg = reduced(arch)
         name = f"{arch}@{shape[0]}x{shape[1]}"
         jobs.append(dict(name=name, kind="train", arch=arch, reduced=True, dtype="float32",
@@ -207,7 +219,7 @@ def processes(tmp_path_factory):
     for k, v in lm_batch_np(save_cfg, 14, B, S, masked=True).items():
         arrays[f"save/b/{k}"] = v
     np.savez(tmp / "inputs.npz", **arrays)
-    worlds = {2: jobs, 4: [j for j in jobs if j["mesh"] == (2, 2)]}
+    worlds = {2: jobs, 4: [j for j in jobs if j["mesh"] == (2, 2)]}   # (1, 2) needs 2
 
     def launch(world):
         out = tmp / f"w{world}"
@@ -258,7 +270,7 @@ def test_collective_plan_equals_the_gloo_counts(processes, world):
             coords = tuple(int(c) for c in np.unravel_index(r, procs))
             mesh = Mesh(tuple(job["mesh"]), ("data", "model"), torch.device("cpu"), procs,
                         coords, {})
-            plan = mesh_step_collectives(model, mesh).stats().by_type
+            plan = mesh_step_collectives(model, mesh, batch=(B, S)).stats().by_type
             assert plan and all(v > 0 for v in plan.values())
             assert log[job["name"]]["collective_bytes"] == [plan] * job["steps"], (job, r)
 
