@@ -345,6 +345,25 @@ the script exits non-zero without printing a result):
    equal to ``mesh_step_collectives``'s plan in both dtypes.  The
    products are ``torch.matmul`` (the reference's run outside any Pallas
    kernel), so this path launches no kernel of the kernels line.
+17. tensor parallelism for the MoE archs (``models/moe.py``'s split
+   global dispatch: the routing whole, once a process; each ``model``
+   shard's ``E / 2`` experts' dispatch rows, products and combine; the
+   partials summed over ``model`` in shard order): qwen3-moe-235b-a22b
+   at full width (d 4,096, 64 heads on 4 kv heads, 128 experts, top-8,
+   expert d_ff 1,536, vocab 151,936) cut to 1 of its 94 layers, float32,
+   B = 2, S = 256.  The one-device step runs first, alone in this process
+   (``launch/sharded.py::tp_reference``: params, moments and gradients
+   ~60 GB, more than fits beside the two processes), and keeps on the
+   host its loss, grad norm, aux, dropped assignments and the parameters
+   after it: every leaf whole but the experts and the vocab leaves, which
+   it keeps at the first and last expert (row) of each model shard.  Then
+   two gloo processes on (1, 2), forked from the server, each take 2
+   donated steps (``tp_check_rank``): step 1's parameters within
+   ``TP_PARAM_TOL`` (1e-6) of the kept ones, its loss and grad norm
+   within 1e-6 relative, its dropped assignments equal, the two processes
+   equal, the collective bytes each counted equal to the plan; each
+   process's peak over the one-device step's, its ``gather_s``, ``tp_s``
+   and ``reduce_s`` printed.  It launches no kernel of the kernels line.
 
 Before the last lines the script checks that no process it started (the
 compiler, the spawned ranks, multiprocessing's resource tracker) is still
@@ -557,6 +576,17 @@ TP_SPAWN_TIMEOUT = 120         # seconds the spawned ranks may take
 # (a spawned process spends 8-14 s importing torch, and remat's first backward 8-11 s
 # more importing torch._dynamo)
 TP_PRELOAD = ("repro_torch.launch.sharded", "torch._dynamo")
+# phase 17: the MoE archs' experts split along model, one float32 cell held to a one-device
+# step run first (its parameters, moments and gradients do not fit beside the processes)
+MOE_TP_FULL = dict(arch="qwen3-moe-235b-a22b", layers=1, mesh=(1, 2), batch=2, seq=256,
+                   seed=0, runs=[dict(dtype="float32", steps=2, params=True)])
+MOE_TP_CUT = (
+    "n_layers 94 -> 1 at full width, float32, B = 2, S = 256: 3,732,418,816 parameters, "
+    "2,415,919,104 of them the experts; one device holds params 14.9 GB + moments 29.9 GB "
+    "+ gradients 14.9 GB = ~60 GB; a process of (1, 2) its blocks (1,866,215,680 "
+    "parameters: experts, vocab, heads and router split) at 7.5 + 14.9 + 7.5 GB plus the "
+    "reduce's copies of the largest expert leaf (~3.2 GB) = ~33 GB, so the two processes "
+    "take ~66 GB and the one-device step runs before them, alone")
 # phases 13(c) and 14(d) leave their measured numbers here for phase 15
 MEASURED = {}
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
@@ -3613,6 +3643,89 @@ def phase16_tensor_parallel(dev, smi) -> None:
     shutil.rmtree(work, ignore_errors=True)
 
 
+def phase17_moe_tensor_parallel(dev, smi) -> None:
+    """The MoE archs' split along ``model`` at full width on the card (see
+    the module docstring)."""
+    import dataclasses
+    import math
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.hlo_analysis import mesh_step_collectives
+    from repro_torch.launch.mesh import Mesh, _process_grid
+    from repro_torch.launch.sharded import spawn_ranks, tp_check_rank, tp_reference
+    from repro_torch.models import get_model
+
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "moe_tp_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    c = MOE_TP_FULL
+    (want,) = c["runs"]
+    run = dict(want, reference=str(work / "one_device.pt"))
+    params = dict(c, runs=[run], opt=TRAIN_EPS_RULE, device="cuda",
+                  threads=max(1, (os.cpu_count() or 2) // MESH_PROCS))
+    torch.cuda.empty_cache()
+    ref = tp_reference(params, run, run["reference"])    # first, alone on the card
+    ref_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    wall = time.time()
+    spawn_ranks(tp_check_rank, MESH_PROCS, (str(work), params), backend="gloo",
+                init_file=work / "init", timeout=TP_SPAWN_TIMEOUT, start="forkserver")
+    spawn_s = time.perf_counter() - t0 - ref_s
+    logs = [json.loads((work / f"rank{r}.json").read_text()) for r in range(MESH_PROCS)]
+    procs = _process_grid(c["mesh"], MESH_PROCS)
+    model = get_model(dataclasses.replace(get_arch(c["arch"]).config, n_layers=c["layers"],
+                                          dtype=getattr(torch, want["dtype"])))
+    per, bad = [], {}
+    for r, lg in enumerate(logs):
+        (got,) = lg["runs"]
+        coords = tuple(int(x) for x in divmod(r, procs[1]))
+        plan = mesh_step_collectives(model, Mesh(c["mesh"], ("data", "model"),
+                                                 torch.device("cpu"), procs, coords, {}),
+                                     batch=(c["batch"], c["seq"])).stats().by_type
+        rel = {k: abs(got[k][0] - ref[k]) / abs(ref[k]) for k in ("loss", "grad_norm", "aux")}
+        checks = dict(params_step1=got["max_param_err"] <= TP_PARAM_TOL,
+                      step1_vs_one_device=all(rel[k] <= TP_METRIC_TOL[want["dtype"]]
+                                              for k in ("loss", "grad_norm")),
+                      dropped=int(got["dropped"][0]) == ref["dropped"],
+                      plan=all(b == plan for b in got["collective_bytes"]),
+                      finite=all(math.isfinite(v) for v in got["loss"] + got["grad_norm"]))
+        per.append(dict(
+            rank=r, peak_memory_allocated=got["peak_memory_allocated"],
+            peak_ratio=got["peak_memory_allocated"] / ref["peak_memory_allocated"],
+            param_bytes=got["param_bytes"], max_param_err=got["max_param_err"],
+            ms_per_step=[x * 1e3 for x in got["seconds"]],
+            collective_ms=[{k.replace("_s", "_ms"): v * 1e3 for k, v in t.items()}
+                           for t in got["timing"]],
+            tokens_per_s=[c["batch"] * c["seq"] / x for x in got["seconds"]],
+            loss=got["loss"], grad_norm=got["grad_norm"], aux=got["aux"],
+            dropped=got["dropped"], rel_err_step1=rel, collective_bytes=got["collective_bytes"],
+            plan_by_type=plan, checks=checks))
+        if not all(checks.values()):
+            bad[f"rank {r}"] = checks
+    same = all((p["loss"], p["grad_norm"], p["dropped"])
+               == (per[0]["loss"], per[0]["grad_norm"], per[0]["dropped"]) for p in per)
+    if not same:
+        bad["ranks"] = "the processes report different losses, grad norms or drops"
+    emit(phase=17, card=smi, arch=c["arch"], layers=c["layers"], mesh=c["mesh"],
+         procs=MESH_PROCS, batch=c["batch"], seq=c["seq"], dtype=want["dtype"],
+         steps=want["steps"], params=model.cfg.param_count(), cut=MOE_TP_CUT,
+         tolerance=dict(params_step1=f"{TP_PARAM_TOL} under AdamWConfig(eps=1e-3)",
+                        step1_loss_and_grad_norm_rel=TP_METRIC_TOL[want["dtype"]],
+                        dropped="equal"),
+         one_device={k: v for k, v in ref.items() if k != "kept"},
+         compared={name: ("whole" if dim is None else f"dim {dim} at {idx}")
+                   for name, (dim, idx) in ref["kept"].items()},
+         per_process=per, ranks_agree=same, seconds_at=[lg["marks"] for lg in logs],
+         started_after_s=[lg["started_at"] - wall for lg in logs],
+         one_device_seconds=ref_s, spawn_seconds=spawn_s, seconds=time.perf_counter() - t0)
+    check(not bad, f"17: the MoE tensor-parallel step's checks failed: {bad}")
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def result_on_cpu(res):
     """A card result's tensors on the CPU."""
     from repro_torch.core import SearchResult
@@ -3662,6 +3775,7 @@ def main() -> int:
     mesh_launches = run(14, phase14_mesh, dev, smi)
     dryrun_launches = run(15, phase15_dryrun, dev, smi)
     run(16, phase16_tensor_parallel, dev, smi)
+    run(17, phase17_moe_tensor_parallel, dev, smi)
     stop_forkserver()
 
     kernels = []

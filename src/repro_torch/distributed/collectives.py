@@ -94,9 +94,11 @@ def _staged(t: torch.Tensor, group) -> bool:
 def all_gather(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """Every process's ``t`` along ``axis``, stacked on a new leading
     dimension in the axis's order: ``(procs along axis, *t.shape)``.
-    Without a process group that is ``t[None]``."""
+    Where the axis spans one process (or without a process group) that is
+    ``t[None]``, with no ``torch.distributed`` call: the mesh step's data
+    shards call it from threads of their own (``train/step.py``)."""
     group = mesh.groups.get(axis)
-    if group is None:
+    if group is None or not spans(mesh, axis):
         return t[None]
     with counted("all-gather", _nbytes(t), spans(mesh, axis)):
         stage = _staged(t, group)
@@ -110,9 +112,10 @@ def all_gather(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
 
 
 def all_reduce_max(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
-    """The elementwise maximum of ``t`` over the processes along ``axis``."""
+    """The elementwise maximum of ``t`` over the processes along ``axis``
+    (``t`` itself where the axis spans one process)."""
     group = mesh.groups.get(axis)
-    if group is None:
+    if group is None or not spans(mesh, axis):
         return t
     with counted("all-reduce", _nbytes(t), spans(mesh, axis)):
         stage = _staged(t, group)

@@ -17,15 +17,16 @@ moves, a peer's block is the card's own).  A cell counts that card's work:
 
 * ``train``: the port's mesh step (``train/step.py::_MeshStep``) itself,
   from the card's parameter and moment blocks: the card's
-  ``global_batch / n_data`` rows.  A decoder without MoE runs it
-  tensor-parallel: the card computes its ``model`` shard's heads, MLP
-  columns and vocab rows (the groups its specs split) with its blocks
-  gathered along the data axes, and the planned model-axis sums; every
-  other family gathers the whole parameters, so the cards of a data shard
-  repeat its work, an MoE layer dispatching the card's tokens as one shard
-  of the step's global dispatch.  Then the gradients' float32 blocks, the
-  global norm and AdamW on the card's blocks, with bf16 moments for MoE
-  configs (the reference's ``state_dtype``);
+  ``global_batch / n_data`` rows.  A decoder runs it tensor-parallel:
+  the card computes its ``model`` shard's heads, MLP columns, vocab rows
+  and experts (the groups its specs split) with its blocks gathered along
+  the data axes, and the planned model-axis sums; an MoE layer routes
+  the card's tokens whole and dispatches them, as one shard of the step's
+  global dispatch, to the card's experts.  Every other family gathers the
+  whole parameters, so the cards of a data shard repeat its work.  Then
+  the gradients' float32 blocks, the global norm and AdamW on the card's
+  blocks, with bf16 moments for MoE configs (the reference's
+  ``state_dtype``);
 * ``prefill``/``decode``: the card's rows of the request batch (all of them
   when the data axes do not divide it) with the whole parameters and
   decode state; the port has no mesh serve path, so the card gathers the

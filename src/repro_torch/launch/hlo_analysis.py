@@ -286,11 +286,13 @@ def _tp_sums(plan: CollectivePlan, cfg, split, mesh, rows: int, S: int) -> None:
     """One data shard's model-axis sums (``shard_ctx``'s ``enter`` and
     ``leave``, ``collectives.ordered_sum``; the vocab max) in a forward and
     backward of the tensor-parallel decoder: the embedding's rows; each
-    split region of a layer (attention, MLP) summed in the forward, again
-    in its checkpointed recompute, and its input gradient in the backward;
-    each loss chunk's max and its ``(2, rows, C)`` exp sums and gold
-    logits, in the forward and the recompute, and the chunk's input
-    gradient."""
+    split region of a layer (attention; the MLP, or in an MoE layer the
+    experts and the shared expert) summed in the forward, again in its
+    checkpointed recompute, and its input gradient in the backward, and
+    an MoE layer's gate values' gradient (``(rows · S, top_k)`` float32) in
+    the backward; each loss chunk's max and its ``(2, rows, C)`` exp sums
+    and gold logits, in the forward and the recompute, and the chunk's
+    input gradient."""
     local, item = mesh.local("model"), torch.empty((), dtype=cfg.dtype).element_size()
     across = spans(mesh, "model")
 
@@ -302,11 +304,17 @@ def _tp_sums(plan: CollectivePlan, cfg, split, mesh, rows: int, S: int) -> None:
     passes = 3 if cfg.remat else 2
     if "vocab" in split:
         ordered(act)
-    for _ in range(cfg.n_layers):
-        for group in ("heads", "mlp"):
-            if group in split:
-                for _ in range(passes):
-                    ordered(act)
+    n_moe = _moe_layers(cfg)         # a tensor-parallel MoE layer always splits its experts
+    regions = {"heads": cfg.n_layers,  # the layers each region runs in
+               "mlp": cfg.n_layers - n_moe + (n_moe if cfg.n_shared_experts else 0)}
+    for group, layers in regions.items():
+        if group in split:
+            for _ in range(layers * passes):
+                ordered(act)
+    for _ in range(n_moe):           # the experts' region, and the gate values' gradient
+        for _ in range(passes):
+            ordered(act)
+        ordered(rows * S * cfg.top_k * 4)
     if "vocab" in split:
         C = min(cfg.logits_chunk, S)
         for _ in range(-(-S // C)):
@@ -323,11 +331,12 @@ def mesh_step_collectives(model, mesh, *, microbatches: int = 1,
     ``(2, E)`` int64 vector a layer and a data shard) and loss sums, the
     float32 gradients' reduce, the global norm's two maxima (its scale and
     its cells) over every axis, and the MoE's dropped count.  Where the
-    step is tensor-parallel (a decoder without MoE, several ``model``
-    shards) the gather is along the data axes only, each data shard's
-    model-axis sums are added (:func:`_tp_sums`; ``batch`` is the global
-    ``(B, S)``), and each partial leaf's float32 gradients are summed over
-    ``model`` before the data axes."""
+    step is tensor-parallel (a decoder, several ``model`` shards) the
+    gather is along the data axes only (an MoE router's along ``model``
+    too, ``transformer.tp_gathered``), each data shard's model-axis sums
+    are added (:func:`_tp_sums`; ``batch`` is the global ``(B, S)``), and
+    each partial leaf's float32 gradients are summed over ``model`` before
+    the data axes."""
     from repro_torch.models import transformer
 
     cfg = model.cfg
@@ -340,9 +349,11 @@ def mesh_step_collectives(model, mesh, *, microbatches: int = 1,
     split, partial = tp or ((), ())
     if tp and batch is None:
         raise ValueError(f"{cfg.name}: the tensor-parallel step's plan needs the batch's (B, S)")
+    whole = transformer.tp_gathered(cfg) if tp else frozenset()
     for path, t in shapes.items():
         plan.gather("param_gather", block_shape(t.shape, mesh, specs[path]),
-                    t.element_size(), mesh, specs[path], keep=("model",) if tp else ())
+                    t.element_size(), mesh, specs[path],
+                    keep=("model",) if tp and path not in whole else ())
     layers = _moe_layers(cfg)
     for _ in range(microbatches):
         for _ in range(layers):

@@ -25,7 +25,9 @@ known inputs, to ``out_dir/rank{rank}.npz``.  The multi-process tests and
 every shard runs too, so the tests and ``chip_smoke.py`` hold the ranks'
 gathered results to one process's bit for bit.  :func:`tp_check_rank`
 holds the tensor-parallel mesh step at an arch's full width against the
-one-device step, a rank's blocks at a time.
+one-device step, a rank's blocks at a time, or against a one-device step
+that :func:`tp_reference` ran before the ranks started (where the card
+cannot hold both).
 """
 from __future__ import annotations
 
@@ -46,7 +48,7 @@ from repro_torch.core.sharded import (
 )
 from repro_torch.distributed import ring_all_gather, ring_reduce_scatter
 from repro_torch.launch.mesh import GROUP_TIMEOUT, make_mesh
-from repro_torch.models.common import tree_leaves
+from repro_torch.models.common import P, tree_leaves
 
 
 def _rank_main(target, rank: int, world: int, backend: str, init_file: str,
@@ -272,7 +274,7 @@ def run_ep_layer(cfg, mesh, layer, x, g):
 
     from repro_torch.launch.shardings import gather_leaf, shard_leaf, shard_tree
     from repro_torch.models import moe, shard_ctx
-    from repro_torch.models.common import P, ParamBuilder, tree_map
+    from repro_torch.models.common import ParamBuilder, tree_map
 
     spec_tree = moe.build_moe_params(cfg, ParamBuilder(cfg, "spec", mesh=mesh),
                                      prefix_layers=False)
@@ -415,6 +417,20 @@ def train_rank_program(rank: int, world: int, inputs: str | None, out_dir: str,
     (pathlib.Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(log))
 
 
+def _tp_model(params: dict, dtype: str):
+    """The model a tensor-parallel check runs: ``params["arch"]`` (its
+    reduced config where ``params["reduced"]``) cut to ``params["layers"]``
+    layers, in ``dtype``."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import get_model
+
+    spec = get_arch(params["arch"])
+    return get_model(dataclasses.replace(spec.reduced if params.get("reduced") else spec.config,
+                                         n_layers=params["layers"], dtype=getattr(torch, dtype)))
+
+
 def tp_check_rank(rank: int, world: int, out_dir: str, params: dict) -> None:
     """One rank of a check of the tensor-parallel mesh step at an arch's
     full width, once a run of ``params["runs"]``: the donated mesh steps
@@ -426,28 +442,32 @@ def tp_check_rank(rank: int, world: int, out_dir: str, params: dict) -> None:
     kept).  Where the run has ``params`` each rank keeps its blocks after
     the first step, runs the one-device step in turn and takes the largest
     ``|mesh − one device|`` over them; otherwise rank 0 alone runs it.
+    Where the run has a ``reference`` (a file :func:`tp_reference` wrote
+    before the ranks started: the card cannot hold the one-device step
+    beside them) no rank runs it: each takes the largest error over the
+    parameters the file holds, right after the first step, and the file's
+    one-device numbers.
 
     ``params``: ``arch`` (its reduced config where ``reduced``), ``layers``
     (the depth it is cut to), ``runs`` (``{"dtype": ..., "steps": ...,
-    "params": bool}`` each, in order), ``mesh``, ``batch``, ``seq``, ``opt``
-    (``AdamWConfig`` fields), ``seed``, ``device``, ``threads``.  Writes
-    ``out_dir/rank{rank}.json``: a record a run (its dtype, each step's
-    loss, grad norm, seconds, collective phases' seconds (``gather_s``,
-    ``tp_s``, ``reduce_s``) and collective operand bytes by type, the
-    one-device step's loss, grad norm and peak (rank 0's where the run has
-    no ``params``; peaks ``None`` off the card), the bytes of the blocks
-    held, the largest error or ``None``), and the
+    "params": bool, "reference": path (optional)}`` each, in order),
+    ``mesh``, ``batch``, ``seq``, ``opt`` (``AdamWConfig`` fields),
+    ``seed``, ``device``, ``threads``.  Writes ``out_dir/rank{rank}.json``:
+    a record a run (its dtype, each step's loss, grad norm, aux and
+    dropped assignments (MoE), seconds, collective phases' seconds
+    (``gather_s``, ``tp_s``, ``reduce_s``) and collective operand bytes
+    by type, the one-device step's loss, grad norm (and aux and dropped
+    from a reference) and peak (rank 0's where the run has no ``params``;
+    peaks ``None`` off the card), the bytes of the blocks held, the
+    largest error or ``None``, and the leaves it was taken over), and the
     seconds from the program's start (``started_at``, wall clock) at which
     each part ended (``marks``)."""
-    import dataclasses
     import json
 
-    from repro_torch.configs import get_arch
     from repro_torch.data import LMDataConfig, lm_batch
     from repro_torch.distributed.collectives import counts, reset_counts
     from repro_torch.kernels.util import resolve_device
     from repro_torch.launch.shardings import shard_leaf, shard_tree
-    from repro_torch.models import get_model
     from repro_torch.train import AdamWConfig, make_train_step, optim
     from repro_torch.train.step import deterministic
 
@@ -462,12 +482,8 @@ def tp_check_rank(rank: int, world: int, out_dir: str, params: dict) -> None:
     dev = resolve_device(params["device"])
     on_card = dev.type == "cuda"
     mark("device")
-    spec = get_arch(params["arch"])
-    base_cfg = dataclasses.replace(spec.reduced if params.get("reduced") else spec.config,
-                                   n_layers=params["layers"])
     mesh = make_mesh(params["mesh"], ("data", "model"), device=dev)
     ocfg = AdamWConfig(**params["opt"])
-    data = LMDataConfig(base_cfg.vocab, params["batch"], params["seq"])
 
     def peak_from_here():
         if on_card:
@@ -485,12 +501,14 @@ def tp_check_rank(rank: int, world: int, out_dir: str, params: dict) -> None:
         if on_card:
             torch.cuda.empty_cache()
 
-    def run(dtype: str, steps: int, compare: bool) -> dict:
-        model = get_model(dataclasses.replace(base_cfg, dtype=getattr(torch, dtype)))
+    def run(dtype: str, steps: int, compare: bool, reference=None) -> dict:
+        model = _tp_model(params, dtype)
+        data = LMDataConfig(model.cfg.vocab, params["batch"], params["seq"])
         spec_of = dict(tree_leaves(model.specs(mesh)))
         init = lambda: model.init(torch.Generator(device=dev).manual_seed(params["seed"]))  # noqa: E731
-        out = dict(dtype=dtype, loss=[], grad_norm=[], seconds=[], timing=[],
-                   collective_bytes=[])
+        ref = torch.load(reference, map_location="cpu") if reference else None
+        out = dict(dtype=dtype, loss=[], grad_norm=[], aux=[], dropped=[], seconds=[],
+                   timing=[], collective_bytes=[])
         base = held()
         full = init()
         mark(f"{dtype}_init")
@@ -500,6 +518,7 @@ def tp_check_rank(rank: int, world: int, out_dir: str, params: dict) -> None:
         mark(f"{dtype}_blocks")
         step = make_train_step(model, ocfg, mesh, donate=True)
         out["param_bytes"] = sum(t.numel() * t.element_size() for _, t in tree_leaves(blocks))
+        first = {}
         for i in range(steps):
             batch = lm_batch(data, i, device=dev)
             step.timing = {}
@@ -513,14 +532,26 @@ def tp_check_rank(rank: int, world: int, out_dir: str, params: dict) -> None:
             _sync(dev)
             out["seconds"].append(time.perf_counter() - t0)
             out["grad_norm"].append(float(m["grad_norm"]))
+            for key in ("aux", "dropped"):
+                if key in m:
+                    out[key].append(float(m[key]))
             out["timing"].append(dict(step.timing))
             out["collective_bytes"].append(counts())
             if i == 0:
                 out["peak_memory_allocated"] = peak(base)
-                first = {path: t.clone() for path, t in tree_leaves(blocks)} if compare else {}
+                if ref is not None:
+                    out["max_param_err"] = _max_err_kept(ref["params"], dict(tree_leaves(blocks)),
+                                                         mesh, spec_of)
+                    out["compared"] = sorted(ref["params"])
+                elif compare:
+                    first = {path: t.clone() for path, t in tree_leaves(blocks)}
         mark(f"{dtype}_mesh_steps")
         del blocks, opt, step, m
         free()
+        if ref is not None:
+            out.update({f"one_device_{k}": ref[k] for k in (
+                "loss", "grad_norm", "aux", "dropped", "peak_memory_allocated")})
+            return out
         out["max_param_err"] = None
         for r in range(world if compare else 1):    # one rank's one-device step at a time
             dist.barrier()
@@ -551,9 +582,115 @@ def tp_check_rank(rank: int, world: int, out_dir: str, params: dict) -> None:
 
     with deterministic(dev):
         for r in params["runs"]:
-            log["runs"].append(run(r["dtype"], r["steps"], r["params"]))
+            log["runs"].append(run(r["dtype"], r["steps"], r["params"], r.get("reference")))
     mark("end")
     (pathlib.Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(log))
+
+
+def _max_err_kept(kept: dict, blocks: dict, mesh, spec_of: dict) -> float:
+    """The largest ``|block − kept|`` over the parameters :func:`tp_reference`
+    kept (``{name: (dim, indices, values)}``: a whole leaf where ``dim`` is
+    ``None``, else its ``indices`` along ``dim``), each compared where this
+    process's block holds it."""
+    from repro_torch.launch.shardings import shard_leaf
+
+    err = 0.0
+    for name, (dim, indices, values) in kept.items():
+        path = tuple(name.split("/"))
+        block, spec = blocks[path], spec_of[path]
+        if dim is None:
+            err = max(err, float((shard_leaf(values.to(block.device), mesh, spec)
+                                  - block).abs().max()))
+            continue
+        # the kept indices along dim, the other dimensions cut as the block is
+        kept_blk = shard_leaf(values.to(block.device), mesh,
+                              P(*(None if i == dim else e for i, e in enumerate(spec))))
+        n = block.shape[dim] // mesh.local("model")
+        lo = mesh.start("model") * n
+        for k, idx in enumerate(indices):
+            if lo <= idx < lo + block.shape[dim]:
+                err = max(err, float((block.select(dim, idx - lo)
+                                      - kept_blk.select(dim, k)).abs().max()))
+    return err
+
+
+def tp_reference(params: dict, run: dict, path) -> dict:
+    """The one-device step :func:`tp_check_rank` holds a run with a
+    ``reference`` to, run in the calling process before the ranks start:
+    from ``model.init`` at ``params["seed"]`` on ``lm_batch`` 0 in the
+    run's dtype, its loss, grad norm and aux, the assignments its dispatch
+    drops (counted in a forward without gradients before it), its seconds
+    and peak memory, and the parameters after it: each leaf of at most
+    ``params["whole_max"]`` elements (default 2^26) whole, each larger one
+    that the specs split along ``model`` at the first and last index of
+    every ``model`` shard along that dimension (an expert leaf's first and
+    last expert of each shard, the vocab leaves' first and last rows).
+    Writes them to ``path`` (``torch.save``, on the host) and returns the
+    record without the parameters."""
+    from repro_torch.data import LMDataConfig, lm_batch
+    from repro_torch.kernels.util import resolve_device
+    from repro_torch.models import moe
+    from repro_torch.train import AdamWConfig, make_train_step, optim
+    from repro_torch.train.step import deterministic
+
+    dev = resolve_device(params["device"])
+    on_card = dev.type == "cuda"
+    model = _tp_model(params, run["dtype"])
+    cfg = model.cfg
+    mesh = make_mesh(params["mesh"], ("data", "model"), device=dev)
+    size = mesh.size("model")
+    ocfg = AdamWConfig(**params["opt"])
+    batch = lm_batch(LMDataConfig(cfg.vocab, params["batch"], params["seq"]), 0, device=dev)
+    if on_card:
+        torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev) if on_card else 0
+    full = model.init(torch.Generator(device=dev).manual_seed(params["seed"]))
+    routes, original = [], moe._router
+
+    def recording(cfg_, xt, w):
+        out = original(cfg_, xt, w)
+        routes.append(out[0])
+        return out
+
+    moe._router = recording
+    try:
+        with torch.no_grad():
+            model.loss(full, batch)
+    finally:
+        moe._router = original
+    dropped = sum(moe.dropped_assignments(cfg, g) for g in routes)
+    del routes
+    opt = optim.init(ocfg, full)
+    with deterministic(dev):
+        if on_card:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        full, opt, m = make_train_step(model, ocfg, donate=True)(full, opt, batch)
+        rec = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                   aux=float(m["aux"]), dropped=dropped, seconds=time.perf_counter() - t0,
+                   peak_memory_allocated=(torch.cuda.max_memory_allocated(dev) - base
+                                          if on_card else None))
+    del opt
+    whole_max = params.get("whole_max", 1 << 26)
+    spec_of = dict(tree_leaves(model.specs(mesh)))
+    kept = {}
+    for p, t in tree_leaves(full):
+        at = [i for i, e in enumerate(spec_of[p])
+              if e == "model" or (isinstance(e, tuple) and "model" in e)]
+        name = "/".join(p)
+        if t.numel() <= whole_max or not at:
+            kept[name] = (None, None, t.cpu())
+            continue
+        n = t.shape[at[0]] // size
+        idx = sorted({i for s in range(size) for i in (s * n, s * n + n - 1)})
+        kept[name] = (at[0], idx, t.index_select(at[0], torch.tensor(idx, device=t.device)).cpu())
+    del full
+    if on_card:
+        torch.cuda.empty_cache()
+    torch.save(dict(rec, params=kept), path)
+    rec["kept"] = {name: (dim, idx) for name, (dim, idx, _) in kept.items()}
+    return rec
 
 
 def ep_inputs(cfg, B: int, S: int, seed: int, dev):

@@ -26,10 +26,13 @@ over which this process's shards are consecutive.
 processes hold the shards) and leaves each process its block.  The
 tensor-parallel step (``train/step.py``) gathers a leaf along the data axes
 only (``gather_leaf(..., axes=)``), so its contributions are already this
-process's block along ``model``, and a leaf replicated along ``model`` that
-feeds split compute comes with one partial contribution a ``model`` shard,
-summed in shard order before the data axes (``reduce_blocks(..., held=,
-partial=)``).
+process's block along ``model`` (``reduce_blocks(..., held=("model",))``),
+and a leaf replicated along ``model`` that feeds split compute comes with
+one partial contribution a ``model`` shard, summed in shard order before
+the data axes (``partial=``).  A leaf it gathers along ``model`` too (the
+MoE router, ``gather_tree(..., whole=)``) computes whole on every shard, so
+its contributions are complete and the block's part of them is taken
+(``held=()``).
 """
 from __future__ import annotations
 
@@ -296,10 +299,12 @@ def shard_tree(tree, mesh, specs):
     return _map_paths(lambda path, leaf: shard_leaf(leaf, mesh, spec_of[path]), tree)
 
 
-def gather_tree(tree, mesh, specs, axes: Sequence[str] | None = None):
-    """:func:`gather_leaf` of every leaf of a tree of nested dicts."""
+def gather_tree(tree, mesh, specs, axes: Sequence[str] | None = None, whole=()):
+    """:func:`gather_leaf` of every leaf of a tree of nested dicts, along
+    ``axes``; the leaves whose paths are in ``whole`` along every axis."""
     spec_of = dict(tree_leaves(specs))
-    return _map_paths(lambda path, leaf: gather_leaf(leaf, mesh, spec_of[path], axes), tree)
+    return _map_paths(lambda path, leaf: gather_leaf(leaf, mesh, spec_of[path],
+                                                     None if path in whole else axes), tree)
 
 
 def _map_paths(fn, tree, path: tuple = ()):

@@ -26,6 +26,11 @@
   before it, the Switch aux from the global ``frac`` and ``mean_p``.  The
   step gives each shard's thread a :func:`data_shard` context whose
   exchange all-gathers one ``(2, E)`` count vector a shard and a layer.
+  On a mesh whose ``model`` axis has several shards the step splits the
+  experts along it (tensor parallelism, ``models/shard_ctx.py``): the
+  routing runs whole, once a process, and each ``model`` shard
+  dispatches, computes and combines only its ``E / model`` experts'
+  slots; the partials are summed over ``model`` in shard order.
 
 The backward passes through the router's top-k values and the gate
 renormalisation to the router, and through ``mean_p`` in the Switch aux;
@@ -100,37 +105,53 @@ def capacity(cfg: ModelConfig, tokens: int) -> int:
     return min(max(int(tokens * K / max(E, 1) * cfg.capacity_factor) + 1, 4), tokens * K)
 
 
-def _local_dispatch(xt, gate_idx, gate_vals, E: int, C: int, offset=None):
+def _sorted_assignments(gate_idx, C: int, offset=None):
+    """The block's assignments sorted by expert (stably): ``(order, e_s,
+    t_s, rank, keep)``.  An assignment's rank is its place among the
+    block's assignments to its expert, plus ``offset[e]`` (assignments to
+    ``e`` that come before the block, for the global dispatch); it is kept
+    when that is below ``C``."""
+    T, K = gate_idx.shape
+    N = T * K
+    dev = gate_idx.device
+    flat_e = gate_idx.reshape(N)
+    order = torch.argsort(flat_e, stable=True)
+    e_s = flat_e[order]
+    t_s = torch.arange(T, device=dev).repeat_interleave(K)[order]
+    first = torch.searchsorted(e_s, e_s, side="left")
+    rank = torch.arange(N, device=dev) - first
+    keep = (rank + offset[e_s] if offset is not None else rank) < C
+    return order, e_s, t_s, rank, keep
+
+
+def _local_dispatch(xt, gate_idx, gate_vals, E: int, C: int, offset=None, *,
+                    experts: tuple[int, int] | None = None, assigned=None):
     """Sort-based capacity dispatch over one token block.
 
     xt (T, d); gate_idx/vals (T, K).  Returns (buf (E, C, d), t_of_slot
     (E, C), w_of_slot (E, C), slot_of (T, K)): the reference's slot maps,
     and each token's slots in ascending expert order (the scratch slot
-    ``E · C`` for a dropped assignment), which the combine reads.  An
-    assignment's rank is its place among the block's assignments to its
-    expert, plus ``offset[e]`` (assignments to ``e`` that come before the
-    block, for the global dispatch); it is kept when the rank is below
-    ``C``, in slot ``e · C`` + its place in the block."""
+    ``E · C`` for a dropped assignment), which the combine reads.  A kept
+    assignment (:func:`_sorted_assignments`; ``assigned`` is their result
+    when the caller has it) takes slot ``e · C`` + its rank.  ``experts =
+    (e0, e1)`` builds only those experts' rows (``E`` is then ``e1 − e0``
+    in the shapes above, their slots counted from ``e0``): every other
+    assignment goes to the scratch slot, as a dropped one does."""
     T, K = gate_idx.shape
-    N = T * K
-    dev = xt.device
-    flat_e = gate_idx.reshape(N)
-    flat_t = torch.arange(T, device=dev).repeat_interleave(K)
-    order = torch.argsort(flat_e, stable=True)
-    e_s = flat_e[order]
-    t_s = flat_t[order]
-    w_s = gate_vals.reshape(N)[order]
-    first = torch.searchsorted(e_s, e_s, side="left")
-    rank = torch.arange(N, device=dev) - first
-    keep = (rank + offset[e_s] if offset is not None else rank) < C
+    order, e_s, t_s, rank, keep = assigned or _sorted_assignments(gate_idx, C, offset)
+    w_s = gate_vals.reshape(T * K)[order]
+    if experts is not None:
+        e0, e1 = experts
+        keep = keep & (e_s >= e0) & (e_s < e1)
+        e_s, E = e_s - e0, e1 - e0
     # slot e * C + rank; a dropped assignment goes to the scratch slot E * C,
     # which is sliced off (the reference's mode="drop" scatter)
     slot = torch.where(keep, e_s * C + rank, E * C)
-    buf = torch.zeros((E * C + 1, xt.shape[-1]), dtype=xt.dtype, device=dev)
+    buf = torch.zeros((E * C + 1, xt.shape[-1]), dtype=xt.dtype, device=xt.device)
     buf[slot] = xt[t_s]
-    t_of = torch.zeros(E * C + 1, dtype=torch.long, device=dev)
+    t_of = torch.zeros(E * C + 1, dtype=torch.long, device=xt.device)
     t_of[slot] = t_s
-    w_of = torch.zeros(E * C + 1, dtype=torch.float32, device=dev)
+    w_of = torch.zeros(E * C + 1, dtype=torch.float32, device=xt.device)
     w_of[slot] = torch.where(keep, w_s, 0.0)
     slot_of = torch.empty_like(slot)
     slot_of[order] = slot                                      # (t, j) -> its slot
@@ -285,7 +306,16 @@ def _data_shard_of(p):
 
 
 def _moe_ffn_data_shard(cfg: ModelConfig, p, x: torch.Tensor, shard):
-    """One data shard's part of the mesh step's global dispatch."""
+    """One data shard's part of the mesh step's global dispatch.  Under a
+    tensor-parallel context that splits ``"expert"`` (``shard_ctx``) the
+    routing runs whole, once a process (the router gathered along
+    ``model``); ``xt`` and the gate values enter the split region, each
+    local ``model`` shard dispatches, computes and combines its ``E /
+    model`` experts' slots, and the partials are summed over ``model`` in
+    shard order (a token's slots summed within each shard, the shards
+    added in order).  Where the experts split by their ``d_ff`` columns
+    (``"expert_mlp"``) each shard dispatches every expert's slots to its
+    columns, and the partials are summed the same way."""
     B, S, d = x.shape
     T = B * S
     E = cfg.n_experts
@@ -305,10 +335,26 @@ def _moe_ffn_data_shard(cfg: ModelConfig, p, x: torch.Tensor, shard):
     frac_g = counts[:, 1].sum(dim=0).float() / shard.tokens
     # this shard's part of E * sum(frac * mean_p) * w over the global tokens
     aux = E * torch.sum(frac_g * (mean_p * (T / shard.tokens))) * cfg.router_aux_weight
-    y, dropped = _dispatch_ffn(cfg, p["experts"], xt, gate_idx, gate_vals,
-                               capacity(cfg, shard.tokens), offset)
-    if record:
-        shard.dropped.append(dropped)
+    C = capacity(cfg, shard.tokens)
+    assigned = _sorted_assignments(gate_idx, C, offset)
+    # a shard's E / model experts, or (where E does not divide model) every
+    # expert's slice of the d_ff columns
+    tp = shard_ctx.split("expert")
+    by_columns = tp.mesh is None and shard_ctx.split("expert_mlp").mesh is not None
+    if by_columns:
+        tp = shard_ctx.split("expert_mlp")
+    E_loc = E if by_columns else E // tp.size
+    ws = [tp.shards(p["experts"][k], dim) for k, dim in
+          zip(("w_gate", "w_up", "w_down"), (-1, -1, -2) if by_columns else (0, 0, 0))]
+    parts = []
+    for j, (xj, gj, wg, wu, wd) in enumerate(zip(tp.enter(xt), tp.enter(gate_vals), *ws)):
+        e0 = 0 if by_columns else tp.shard(j) * E_loc
+        buf, _, w_of, slot_of = _local_dispatch(xj, gate_idx, gj, E, C, experts=(e0, e0 + E_loc),
+                                                assigned=assigned)
+        parts.append(_combine(_experts(buf, wg, wu, wd, xt.dtype), w_of, slot_of, xt.dtype))
+    y = tp.leave(parts)
+    if record:                                       # the assignments past capacity
+        shard.dropped.append(torch.sum(~assigned[-1]))
     if cfg.n_shared_experts:
         sp = p["shared"]
         y = y + swiglu(xt, sp["w_gate"], sp["w_up"], sp["w_down"])

@@ -11,12 +11,19 @@ dispatch stays global); the dry-run and the expert-parallel checks do.
 
 **Tensor parallelism** (Megatron's column/row split; what XLA's
 partitioner does with the reference's ``model`` axis).  The mesh train
-step of the decoder family without MoE (``train/step.py``) runs the model
-under :func:`tensor_parallel`, a :class:`TensorParallel` that says which
+step of the decoder family (``train/step.py``) runs the model under
+:func:`tensor_parallel`, a :class:`TensorParallel` that says which
 ``model`` shards the computation covers (``Mesh.local("model")`` of them
 from ``Mesh.start("model")``) and which product groups the parameters'
 specs split: ``"heads"`` (``wq``, ``wo``, MLA's up-projections),
-``"kv_heads"`` (``wk``/``wv``), ``"mlp"`` and ``"vocab"``.  The model then
+``"kv_heads"`` (``wk``/``wv``), ``"mlp"`` (the MLP's columns, the shared
+expert's too), ``"vocab"``, ``"expert"`` (the MoE layer's experts,
+``E / model`` of them a shard: the dispatch buffer's rows, the three
+expert products and the combine of that shard's slots; the router's
+columns split with them in storage, while its product runs whole,
+``models/moe.py``) and ``"expert_mlp"`` (where ``E`` does not divide
+``model``: every expert's ``d_ff`` columns, each shard dispatching all
+the experts' slots).  The model then
 sees, for a split leaf, this process's block along ``model``
 (:meth:`TensorParallel.shards` cuts it a shard at a time), and for a leaf
 that is replicated along ``model`` but feeds split compute (the
@@ -108,7 +115,7 @@ def constrain(x, dims: Iterable, *, divisible: bool = True):
 # ---------------------------------------------------------------------------
 # Tensor parallelism
 # ---------------------------------------------------------------------------
-GROUPS = ("heads", "kv_heads", "mlp", "vocab")
+GROUPS = ("heads", "kv_heads", "mlp", "vocab", "expert", "expert_mlp")
 
 
 @contextlib.contextmanager

@@ -91,36 +91,65 @@ def build_params(cfg: ModelConfig, b):
 # ---------------------------------------------------------------------------
 # Tensor parallelism
 # ---------------------------------------------------------------------------
-def _split_dims(cfg: ModelConfig) -> dict[tuple, tuple[str, int]]:
+def _stacks(cfg: ModelConfig) -> tuple[str, ...]:
+    """The stacked block trees of ``cfg``'s parameters."""
+    return ("blocks", "dense_blocks") if interleaved(cfg) else ("blocks",)
+
+
+def _split_dims(cfg: ModelConfig, by_columns: bool = False) -> dict[tuple, tuple[str, int]]:
     """Each leaf a tensor-parallel step may split along ``model``: its
-    product group (``shard_ctx.GROUPS``) and the dimension of the split."""
-    a, m = ("blocks", "attn"), ("blocks", "mlp")
-    dims = {("embed",): ("vocab", 0), ("unembed",): ("vocab", 1),
-            a + ("wo",): ("heads", 1), m + ("w_up",): ("mlp", 2), m + ("w_down",): ("mlp", 1),
-            m + ("w_gate",): ("mlp", 2)}
-    if cfg.mla:
-        dims.update({a + (k,): ("heads", 2) for k in ("w_uq", "w_uk", "w_uv")})
-    else:
-        dims.update({a + ("wq",): ("heads", 2), a + ("wk",): ("kv_heads", 2),
-                     a + ("wv",): ("kv_heads", 2), a + ("bq",): ("heads", 1),
-                     a + ("bk",): ("kv_heads", 1), a + ("bv",): ("kv_heads", 1)})
+    product group (``shard_ctx.GROUPS``) and the dimension of the split
+    (an MoE config's experts along their expert dimension, or
+    ``by_columns`` along each expert's ``d_ff`` columns)."""
+    dims = {("embed",): ("vocab", 0), ("unembed",): ("vocab", 1)}
+    for stack in _stacks(cfg):
+        a, m = (stack, "attn"), (stack, "mlp")
+        dims.update({a + ("wo",): ("heads", 1), m + ("w_up",): ("mlp", 2),
+                     m + ("w_down",): ("mlp", 1), m + ("w_gate",): ("mlp", 2)})
+        if cfg.mla:
+            dims.update({a + (k,): ("heads", 2) for k in ("w_uq", "w_uk", "w_uv")})
+        else:
+            dims.update({a + ("wq",): ("heads", 2), a + ("wk",): ("kv_heads", 2),
+                         a + ("wv",): ("kv_heads", 2), a + ("bq",): ("heads", 1),
+                         a + ("bk",): ("kv_heads", 1), a + ("bv",): ("kv_heads", 1)})
+    if cfg.moe:
+        e, sh = ("blocks", "moe", "experts"), ("blocks", "moe", "shared")
+        dims.update({e + (k,): ("expert_mlp", d) if by_columns else ("expert", 1)
+                     for k, d in (("w_gate", 3), ("w_up", 3), ("w_down", 2))})
+        dims.update({("blocks", "moe", "router"): ("expert", 2), sh + ("w_gate",): ("mlp", 2),
+                     sh + ("w_up",): ("mlp", 2), sh + ("w_down",): ("mlp", 1)})
     return dims
 
 
 def tp_plan(cfg: ModelConfig, specs, mesh) -> tuple[frozenset, frozenset] | None:
     """How the mesh step splits ``cfg``'s products over ``mesh``'s ``model``
-    axis: ``None`` unless ``cfg`` is a decoder without MoE and ``model`` has
-    several shards; else ``(split groups, partial leaves)`` under the
-    parameters' ``specs``: the product groups whose leaves the specs split
-    along ``model``, and the paths of the leaves replicated along ``model``
-    that feed split compute (their shards' gradients are partial: the
+    axis: ``None`` unless ``cfg`` is a decoder and ``model`` has several
+    shards; else ``(split groups, partial leaves)`` under the parameters'
+    ``specs``: the product groups whose leaves the specs split along
+    ``model``, and the paths of the leaves replicated along ``model`` that
+    feed split compute (their shards' gradients are partial: the
     attention's norm gammas, ``wk``/``wv`` and their biases where the kv
-    heads are not split, MLA's latent projections).  Raises ``ValueError``
+    heads are not split, MLA's latent projections).  An MoE config's
+    experts split along their expert dimension (group ``"expert"``: ``E /
+    model`` experts a shard; its router, split with them, is gathered whole,
+    :func:`tp_gathered`), or where ``E`` does not divide ``model`` and the
+    specs split each expert's ``d_ff`` columns, along those (group
+    ``"expert_mlp"``), as XLA's partitioner serves that spec; experts split
+    along neither are a spec it cannot serve.  Raises ``ValueError``
     naming a leaf whose spec the tensor-parallel path cannot serve."""
-    if (cfg.family != "decoder" or cfg.moe or "model" not in mesh.axes
-            or mesh.size("model") == 1):
+    if cfg.family != "decoder" or "model" not in mesh.axes or mesh.size("model") == 1:
         return None
-    dims = _split_dims(cfg)
+    by_columns = False
+    if cfg.moe:
+        ex = specs["blocks"]["moe"]["experts"]
+        by_columns = ex["w_gate"][1] != "model"
+        for k, col in (("w_gate", 3), ("w_up", 3), ("w_down", 2)):
+            if ex[k][col if by_columns else 1] != "model":
+                raise ValueError(f"the tensor-parallel step cannot serve blocks/moe/experts/{k} "
+                                 f"under its spec {ex[k]}: its {cfg.n_experts} experts split "
+                                 f"along model ({mesh.size('model')} shards) by neither their "
+                                 "experts nor their columns")
+    dims = _split_dims(cfg, by_columns)
     seen: dict[str, bool] = {}
     for path, spec in tree_leaves(specs):
         at = [i for i, e in enumerate(spec)
@@ -144,7 +173,15 @@ def tp_plan(cfg: ModelConfig, specs, mesh) -> tuple[frozenset, frozenset] | None
         names = ("q_norm", "k_norm") if cfg.qk_norm else ()
         if "kv_heads" not in split:
             names += ("wk", "wv") + (("bk", "bv") if cfg.qkv_bias else ())
-    return split, frozenset(("blocks", "attn", k) for k in names)
+    return split, frozenset((stack, "attn", k) for stack in _stacks(cfg) for k in names)
+
+
+def tp_gathered(cfg: ModelConfig) -> frozenset:
+    """The leaves the tensor-parallel step gathers along ``model`` as well
+    (their compute runs whole on every shard, so each process's gradient
+    of them is complete): an MoE config's router, whose softmax and top-k
+    need every expert's logit."""
+    return frozenset({("blocks", "moe", "router")}) if cfg.moe else frozenset()
 
 
 def layer(blocks, i: int):

@@ -23,8 +23,7 @@ semantics), up to the order of float sums:
   MoE layer dispatches each shard's tokens as part of one global dispatch
   (``moe.data_shard``: capacity from the microbatch's token count, the
   ranks after the shards before it, the aux from the global means; the
-  shards of one process run in threads, in step at each MoE layer's count
-  exchange);
+  shards of one process run in threads, below);
 * the gradients are summed over the data shards with the ring
   collectives (``launch.shardings.reduce_blocks``: a reduce-scatter over
   the leaf's data sub-dimension, an all-reduce for a leaf not split over
@@ -33,25 +32,43 @@ semantics), up to the order of float sums:
 * the global norm is summed over the leaves' shard cells in a fixed order,
   and AdamW updates the blocks.
 
-**Along ``model``**, the decoder family without MoE (qwen1.5-4b, qwen3-32b,
-starcoder2-15b, chameleon-34b, minicpm3-4b) splits its products, as XLA's
-partitioner splits the reference's (Megatron's tensor parallelism,
-``models/shard_ctx.py``): on a mesh whose ``model`` axis has several
-shards, each process computes its ``model`` shards' heads, MLP columns and
-vocab rows — the groups its leaves' specs split (``transformer.tp_plan``;
-a leaf whose spec it cannot serve raises) — with its blocks gathered along
-the data axes only.  The split regions' partials are summed over ``model``
-in shard order (``collectives.ordered_sum``); a process holding several
-``model`` shards runs them one after another in each region, each on its
-own tensors, so 1, 2 or 4 processes still give the same bits.  A leaf
+**Along ``model``**, the decoder family (qwen1.5-4b, qwen3-32b,
+starcoder2-15b, chameleon-34b, minicpm3-4b, and the MoE archs qwen3-moe
+and llama4-maverick) splits its products, as XLA's partitioner splits the
+reference's (Megatron's tensor parallelism, ``models/shard_ctx.py``): on
+a mesh whose ``model`` axis has several shards, each process computes its
+``model`` shards' heads, MLP columns, vocab rows and experts (or, where
+the experts do not divide ``model``, every expert's columns) — the
+groups its leaves' specs split (``transformer.tp_plan``; a leaf whose
+spec it cannot serve raises) — with its blocks gathered along the data
+axes only.  The MoE router is gathered along ``model`` too
+(``transformer.tp_gathered``): the routing runs whole, once a process,
+so its gradient is complete on each process, which keeps its block.  The
+split regions' partials are summed over ``model`` in shard order
+(``collectives.ordered_sum``); a process holding several ``model``
+shards runs them one after another in each region, each on its own
+tensors, so 1, 2 or 4 processes still give the same bits.  A leaf
 replicated along ``model`` that feeds split compute (attention's norm
 gammas, ``wk``/``wv`` where the kv heads do not split, MLA's latent
 projections) is handed to the model with one copy a local shard, and its
 shards' partial gradients are summed over ``model`` before the data axes.
 A checkpointed block's recompute runs whole there (no early stop), so
-its sums run as often on every process.  The MoE archs, rwkv6, zamba2 and
-encdec gather the whole parameters: along ``model`` they split storage
-and not compute (ROADMAP).
+its sums run as often on every process.  rwkv6, zamba2 and encdec gather
+the whole parameters: along ``model`` they split storage and not compute
+(ROADMAP).
+
+**Threads.**  An MoE config's data shards run in threads of their own
+(:class:`_Exchange`), in step at each MoE layer's count exchange, which
+the calling thread serves: every ``torch.distributed`` call of the step
+comes from the calling thread.  A model-axis sum inside a shard's thread
+(or inside its backward, which the card runs on autograd's device
+thread) must then stay in the process: with the power-of-two meshes the
+repo runs (``launch/mesh.py``: data takes the processes first), a
+process that holds several data shards holds the whole ``model`` axis,
+whose sums make no ``torch.distributed`` call; where ``model`` spans
+processes each process holds one data shard and the step runs it
+inline.  A layout that breaks this (``(6, 2)`` on 4 processes) raises
+``ValueError``.
 
 Determinism.  The backward passes hold float scatter-adds (the embedding
 lookup's, the MoE dispatch's and combine's), which run as atomics on the
@@ -183,71 +200,107 @@ def make_eval_step(model: Model, mesh=None):
 # The mesh step
 # ---------------------------------------------------------------------------
 class _Exchange:
-    """The MoE layers' count exchange for this process's data shards: each
-    shard's thread hands in its ``(2, E)`` counts; they are all-gathered
-    over the data axes once every local shard has handed its in, and each
-    thread gets every shard's, ``(n, 2, E)`` in shard order."""
+    """The MoE layers' count exchange for this process's data shards, each
+    run in a thread of its own by :meth:`serve`: a shard's thread hands in
+    its ``(2, E)`` counts and waits; the serving (calling) thread
+    all-gathers them over the data axes once every local shard has handed
+    its in, and each thread gets every shard's, ``(n, 2, E)`` in shard
+    order.  So every ``torch.distributed`` call of the step is made by the
+    calling thread, never by a shard's (on the card autograd runs every
+    thread's backward nodes on one worker thread, where two threads'
+    collectives could meet in another order on two processes)."""
 
     def __init__(self, mesh, dp_axes, local_grid, timeout: float):
         self.mesh, self.dp_axes, self.grid = mesh, dp_axes, list(local_grid)
         self.n_local = math.prod(local_grid)
-        self.barrier = threading.Barrier(self.n_local, timeout=timeout)
+        self.timeout = timeout
+        self.cond = threading.Condition()
         self.slots = [None] * self.n_local
         self.out = None
+        self.round = 0                   # exchanges served so far
+        self.failed = False              # a shard's thread raised, or the serve gave up
 
-    def _wait(self) -> None:
-        if self.n_local > 1:
-            self.barrier.wait()
-
-    def __call__(self, q: int, counts: torch.Tensor) -> torch.Tensor:
+    def _gathered(self, slots: list) -> torch.Tensor:
         from repro_torch.launch.shardings import gather_leaf
 
-        self.slots[q] = counts
-        self._wait()
-        if q == 0:
-            mine = torch.stack(self.slots).reshape(self.grid + list(counts.shape))
-            every = gather_leaf(mine, self.mesh, P(*self.dp_axes))
-            self.out = every.reshape((-1,) + tuple(counts.shape))
-        self._wait()
-        out = self.out
-        self._wait()             # every thread has read before the next call writes
+        mine = torch.stack(slots).reshape(self.grid + list(slots[0].shape))
+        every = gather_leaf(mine, self.mesh, P(*self.dp_axes))
+        return every.reshape((-1,) + tuple(slots[0].shape))
+
+    def __call__(self, q: int, counts: torch.Tensor) -> torch.Tensor:
+        if self.n_local == 1:                    # inline, on the calling thread
+            return self._gathered([counts])
+        with self.cond:
+            self.slots[q] = counts
+            r = self.round
+            self.cond.notify_all()
+            if not self.cond.wait_for(lambda: self.round != r or self.failed, self.timeout):
+                raise TimeoutError(f"data shard {q} waited {self.timeout} s at the MoE "
+                                   "count exchange")
+            if self.round == r:
+                raise RuntimeError("another data shard of this process failed")
+            return self.out
+
+    def serve(self, fns: list) -> list:
+        """``[f() for f in fns]``, each in a thread of its own (inline for
+        one), serving their exchanges until every thread has ended; the
+        first error is raised after every thread has ended."""
+        if len(fns) == 1:
+            return [fns[0]()]
+        out, errors, done = [None] * len(fns), [], [False] * len(fns)
+
+        def run(i):
+            try:
+                out[i] = fns[i]()
+            except BaseException as e:  # noqa: BLE001  (re-raised below)
+                errors.append(e)
+            finally:
+                with self.cond:
+                    done[i] = True
+                    self.failed = self.failed or bool(errors)
+                    self.cond.notify_all()
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(fns))]
+        for t in threads:
+            t.start()
+        try:
+            while True:
+                with self.cond:
+                    if not self.cond.wait_for(
+                            lambda: self.failed or all(done)
+                            or all(c is not None for c in self.slots), self.timeout):
+                        raise TimeoutError(f"the data shards' threads passed {self.timeout} s "
+                                           "without meeting at the MoE count exchange")
+                    if self.failed or all(done):
+                        break
+                    slots = list(self.slots)
+                every = self._gathered(slots)            # the collective, on this thread
+                with self.cond:
+                    self.out, self.slots = every, [None] * self.n_local
+                    self.round += 1
+                    self.cond.notify_all()
+        finally:
+            with self.cond:
+                self.failed = self.failed or not all(done)
+                self.cond.notify_all()
+            for t in threads:
+                t.join()
+        if errors:
+            raise errors[0]
         return out
 
 
 @contextlib.contextmanager
 def _tp_scope(tp):
-    """The model runs under ``tp``, its checkpointed recomputes whole."""
+    """The model runs under ``tp``, its checkpointed recomputes whole.  Both
+    settings are process-wide (a recompute may run on autograd's device
+    thread): the step enters this once around all its data shards."""
     from torch.utils.checkpoint import set_checkpoint_early_stop
 
     from repro_torch.models import shard_ctx
 
     with shard_ctx.tensor_parallel(tp), set_checkpoint_early_stop(False):
         yield
-
-
-def _in_threads(fns: list, barrier: threading.Barrier) -> list:
-    """``[f() for f in fns]``, each in a thread of its own (inline for one);
-    an error aborts ``barrier`` (so the other threads stop waiting at it)
-    and the first error is raised after every thread has ended."""
-    if len(fns) == 1:
-        return [fns[0]()]
-    out, errors = [None] * len(fns), []
-
-    def run(i):
-        try:
-            out[i] = fns[i]()
-        except BaseException as e:  # noqa: BLE001  (re-raised below)
-            errors.append(e)
-            barrier.abort()
-
-    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(fns))]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    if errors:
-        raise errors[0]
-    return out
 
 
 class _MeshStep:
@@ -272,15 +325,26 @@ class _MeshStep:
         # the gradients' reduce and the norm), each synchronised with the
         # device; None records nothing
         self.timing = None
-        # the tensor-parallel context (the decoder family without MoE on a
-        # mesh whose model axis has several shards), else None
+        self._timing_lock = threading.Lock()
+        # the tensor-parallel context (the decoder family on a mesh whose
+        # model axis has several shards), else None
+        from repro_torch.distributed.collectives import spans
         from repro_torch.models import shard_ctx, transformer
 
         plan = transformer.tp_plan(self.cfg, self.specs, mesh)
-        self.tp, self.partial = None, frozenset()
+        self.tp, self.partial, self.whole = None, frozenset(), frozenset()
         if plan is not None:
             self.tp = shard_ctx.TensorParallel(mesh, plan[0], self._timed)
-            self.partial = plan[1]
+            self.partial, self.whole = plan[1], transformer.tp_gathered(self.cfg)
+            # the MoE's data shards run in threads (_Exchange), which must not
+            # issue a model-axis collective across processes
+            if self.cfg.moe and len(self.shards) > 1 and spans(mesh, "model"):
+                raise ValueError(
+                    f"{self.cfg.name} on {dict(zip(mesh.axes, mesh.shape))} over processes "
+                    f"{dict(zip(mesh.axes, mesh.procs))}: a process holds "
+                    f"{len(self.shards)} data shards while model spans processes; the "
+                    "tensor-parallel MoE step needs one data shard a process there, or "
+                    "the whole model axis in each process")
 
     @contextlib.contextmanager
     def _timed(self, name: str):
@@ -296,7 +360,8 @@ class _MeshStep:
         yield
         if sync:
             torch.cuda.synchronize(self.mesh.device)
-        self.timing[name] = self.timing.get(name, 0.0) + time.perf_counter() - t0
+        with self._timing_lock:          # the MoE's data shards time from their threads
+            self.timing[name] = self.timing.get(name, 0.0) + time.perf_counter() - t0
 
     # ----------------------------------------------------------- shards
     def _rows(self, batch: dict, m: int) -> tuple[dict, int, int]:
@@ -311,11 +376,12 @@ class _MeshStep:
 
     def _gather(self, params):
         """The parameters a shard computes with: whole, or under tensor
-        parallelism gathered along the data axes only."""
+        parallelism gathered along the data axes only (the leaves of
+        ``transformer.tp_gathered`` whole)."""
         from repro_torch.launch.shardings import gather_tree
 
         return gather_tree(params, self.mesh, self.specs,
-                           self.dp_axes if self.tp is not None else None)
+                           self.dp_axes if self.tp is not None else None, whole=self.whole)
 
     def _live(self, path, p, grads: bool) -> torch.Tensor:
         """A leaf as the model takes it: detached, requiring grad when
@@ -342,11 +408,7 @@ class _MeshStep:
             ctx = (moe.data_shard(moe.DataShard(g, self.n_data, tokens,
                                                 lambda t: exchange(q, t)))
                    if exchange is not None else contextlib.nullcontext())
-            # under tensor parallelism a checkpointed block's recompute runs
-            # whole (no early stop), so its model-axis sums run as often on
-            # every process and every torch version
-            tp = contextlib.nullcontext() if self.tp is None else _tp_scope(self.tp)
-            with ctx as ds, tp, torch.set_grad_enabled(grads):
+            with ctx as ds, torch.set_grad_enabled(grads):
                 live = optim.tree_from_paths(full, {path: self._live(path, p, grads)
                                                     for path, p in tree_leaves(full)})
                 _, metrics = self.model.loss(live, sb)
@@ -362,12 +424,16 @@ class _MeshStep:
             return loss.detach(), ce.detach(), aux.detach(), dropped, g_out
 
         fns = [lambda q=q: shard(q) for q in range(len(self.shards))]
-        if exchange is None:
-            return [f() for f in fns]
-        try:
-            return _in_threads(fns, exchange.barrier)
-        finally:
-            moe.forget_calls()
+        # under tensor parallelism a checkpointed block's recompute runs whole
+        # (no early stop), so its model-axis sums run as often on every
+        # process and every torch version
+        with contextlib.nullcontext() if self.tp is None else _tp_scope(self.tp):
+            if exchange is None:
+                return [f() for f in fns]
+            try:
+                return exchange.serve(fns)
+            finally:
+                moe.forget_calls()
 
     def _sum_over_shards(self, per_shard: list) -> list[torch.Tensor]:
         """Scalars a local shard (``[(a, b, ...)]``) summed over every data
@@ -441,12 +507,13 @@ class _MeshStep:
             del out
         del full
         blocks = {}
-        held = ("model",) if self.tp is not None else ()
         with self._timed("reduce_s"):
             for path, spec in self.spec_of.items():
                 contribs = torch.stack([a.pop(path) for a in acc])
                 if path in self.partial:     # (shards, L, local model, ...) -> model first
                     contribs = contribs.movedim(2, 1)
+                # a leaf gathered whole has a complete gradient: its block is taken
+                held = ("model",) if self.tp is not None and path not in self.whole else ()
                 g = reduce_blocks(contribs.reshape(self.grid + list(contribs.shape[1:])),
                                   self.mesh, spec, self.dp_axes, held=held,
                                   partial="model" if path in self.partial else None)

@@ -304,3 +304,21 @@ def test_train_flops_within_five_percent_on_2x2(reference):
     got = port_cell("qwen1.5-4b", (2, 2))["flops"]
     want = reference()["qwen1.5-4b@2x2"]["flops"]
     assert abs(got - want) <= 0.05 * want, (got, want)
+
+
+def test_moe_train_flops_within_five_percent_on_2x2(reference):
+    """The MoE cell on (2, 2) runs the tensor-parallel step: a card computes
+    its model shard's ``E / 2`` experts (and heads and vocab rows), as the
+    reference's expert-parallel path gives a device ``E / 2`` experts.  A
+    card's experts still take the step's global capacity, where the
+    reference's take ``model`` devices' token shards of a device's
+    capacity each (``capacity`` over ``B·S / 4`` tokens); the three expert
+    products over the extra slots, in the four passes of the 2x1 test's
+    term, are taken off first."""
+    cfg = cfg_of("qwen3-moe-235b-a22b")
+    got = port_cell("qwen3-moe-235b-a22b", (2, 2))["flops"]
+    T, tp = TRAIN["batch"] * TRAIN["seq"], 2
+    extra = cfg.n_experts // tp * (moe.capacity(cfg, T) - tp * moe.capacity(cfg, T // 4))
+    got -= 3 * 2 * extra * cfg.d_model * cfg.moe_d_ff * (4 if cfg.remat else 3) * cfg.n_layers
+    want = reference()["qwen3-moe-235b-a22b@2x2"]["flops"]
+    assert abs(got - want) <= 0.05 * want, (got, want)

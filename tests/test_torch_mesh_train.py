@@ -14,17 +14,20 @@ reference's.
   10× wider than the dense ones: the port's one-device step itself lies
   1.4e-6 from the reference's on zamba2), on masked batches, for
   reduced qwen1.5-4b, qwen3-32b, minicpm3-4b, starcoder2-15b and
-  chameleon-34b (tensor-parallel along ``model``; also on ``(1, 4)``,
-  where qwen3-32b's and starcoder2-15b's kv heads stay replicated),
-  qwen3-moe (whose router drops assignments here), rwkv6 and zamba2;
+  chameleon-34b, qwen3-moe (whose router drops assignments here) and
+  llama4-maverick (tensor-parallel along ``model``, the MoE archs' experts
+  split too; also on ``(1, 4)``, where qwen3-32b's, starcoder2-15b's and
+  the MoE archs' kv heads stay replicated), rwkv6 and zamba2 (llama4
+  within 1e-5 both ways: ``ARCH_TOL``);
   the MoE's dropped assignments equal the one-device
   dispatch's (global capacity, ranks across shards) and its aux within
   1e-6 relative of the reference's.
 * Microbatches 2 on a mesh against the one-device step with 2; the eval
   step.
 * 2 and 4 gloo processes (spawned, a file store, a time limit) train
-  bitwise what one process holding every shard trains, the dense decoders
-  tensor-parallel on (2, 2) and (1, 2) among them; a save from a
+  bitwise what one process holding every shard trains, the decoders
+  tensor-parallel on (2, 2) and (1, 2) among them (qwen3-moe's and
+  llama4-maverick's experts split along ``model``); a save from a
   2-process mesh writes a one-device save's array files byte for byte,
   and ``elastic.resume`` re-shards it onto another mesh in both processes.
   The collective bytes each rank's steps counted
@@ -68,12 +71,18 @@ from torch_towers import (
 )
 
 REF_STEP_TOL = {"rwkv6": 1e-5, "zamba2": 1e-5}     # by family; 1e-6 otherwise
+# reduced llama4-maverick's interleaved dense blocks' near one-hot attention amplifies
+# rounding (tests/test_torch_grads_moe.py): the port's one-device step itself lies
+# 2.1e-6 to 5.8e-6 from the reference's (parameters at seeds 11, 7, 9), and a model split
+# adds up to 3.8e-6 against it; so its steps are held to 1e-5, both ways
+ARCH_TOL = {"llama4-maverick-400b-a17b": 1e-5}      # 1e-6 otherwise
 ARCHS = ("qwen1.5-4b", "qwen3-32b", "minicpm3-4b", "starcoder2-15b", "chameleon-34b",
-         "qwen3-moe-235b-a22b", "rwkv6-1.6b", "zamba2-2.7b")
+         "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b", "rwkv6-1.6b", "zamba2-2.7b")
 MESHES = ((2, 2), (4, 1), (1, 2))
 # the tensor-parallel archs also on (1, 4), where reduced qwen3-32b's 2 kv heads and
 # starcoder2-15b's stay replicated along model (their wk/wv gradients partial)
-TP_ARCHS = ("qwen1.5-4b", "qwen3-32b", "minicpm3-4b", "starcoder2-15b", "chameleon-34b")
+TP_ARCHS = ("qwen1.5-4b", "qwen3-32b", "minicpm3-4b", "starcoder2-15b", "chameleon-34b",
+            "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b")
 TP_MESHES = MESHES + ((1, 4),)
 B, S = 4, 16
 TIMEOUT = 150.0
@@ -158,9 +167,9 @@ def test_mesh_step_matches_one_device_and_reference(arch):
         assert drops > 0, "the test batch should make the router drop assignments"
     for shape in TP_MESHES if arch in TP_ARCHS else MESHES:
         got, m = mesh_step(model, shape, params, batch)
-        assert max_err(got, p1) <= 1e-6, (arch, shape)
-        assert_trees_close(got, ref_params, atol=REF_STEP_TOL.get(cfg.family, 1e-6), rtol=0,
-                           what=f"{arch} {shape}")
+        assert max_err(got, p1) <= ARCH_TOL.get(arch, 1e-6), (arch, shape)
+        assert_trees_close(got, ref_params, rtol=0, what=f"{arch} {shape}",
+                           atol=ARCH_TOL.get(arch, REF_STEP_TOL.get(cfg.family, 1e-6)))
         assert abs(float(m["loss"]) - float(rm["loss"])) <= 1e-5 * float(rm["loss"])
         assert abs(float(m["ce"]) - float(m1["ce"])) <= 1e-6 * float(m1["ce"])
         assert {"loss", "ce", "aux", "grad_norm", "lr"} <= set(m)
@@ -197,13 +206,15 @@ def test_mesh_microbatches_and_eval():
 @pytest.fixture(scope="module")
 def processes(tmp_path_factory):
     """Worlds 2 and 4 side by side: three reduced archs' 2 mesh steps on
-    (2, 2), the dense one tensor-parallel (world 2 also qwen1.5-4b on
-    (4, 1) and minicpm3-4b tensor-parallel on (1, 2), its model shards one
-    a process), and world 2's save and resume."""
+    (2, 2), the dense one and the MoE one tensor-parallel (world 2 also
+    qwen1.5-4b on (4, 1), and minicpm3-4b and llama4-maverick
+    tensor-parallel on (1, 2), their model shards one a process), and
+    world 2's save and resume."""
     tmp = tmp_path_factory.mktemp("mesh_procs")
     jobs, arrays = [], {}
     for arch, shape in (("qwen3-moe-235b-a22b", (2, 2)), ("zamba2-2.7b", (2, 2)),
-                        ("qwen1.5-4b", (4, 1)), ("qwen3-32b", (2, 2)), ("minicpm3-4b", (1, 2))):
+                        ("qwen1.5-4b", (4, 1)), ("qwen3-32b", (2, 2)), ("minicpm3-4b", (1, 2)),
+                        ("llama4-maverick-400b-a17b", (1, 2))):
         cfg = reduced(arch)
         name = f"{arch}@{shape[0]}x{shape[1]}"
         jobs.append(dict(name=name, kind="train", arch=arch, reduced=True, dtype="float32",

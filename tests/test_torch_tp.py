@@ -265,7 +265,7 @@ def test_plan_of_the_specs():
                             mesh)
     with pytest.raises(ValueError, match="blocks/attn/wk"):
         transformer.tp_plan(qwen3, get_model(qwen3).specs(two, {"heads": ()}), two)
-    moe = reduced("qwen3-moe-235b-a22b")
-    assert transformer.tp_plan(moe, get_model(moe).specs(two), two) is None
+    moe = reduced("qwen3-moe-235b-a22b")                # split too (tests/test_torch_tp_moe.py)
+    assert "expert" in transformer.tp_plan(moe, get_model(moe).specs(two), two)[0]
     assert transformer.tp_plan(qwen3, get_model(qwen3).specs(mesh_of((4, 1))),
                                mesh_of((4, 1))) is None

@@ -56,6 +56,44 @@ def mesh_rank(rank, world, inputs, out_dir, params):
              **{k: (v.numpy() if isinstance(v, torch.Tensor) else v) for k, v in out.items()})
 
 
+def threads_rank(rank, world, inputs, out_dir, params):
+    """``train_rank_program``'s jobs, each ``torch.distributed`` call the
+    collectives make counted by the thread that made it: the calls made on
+    the main thread, the names of those made on any other, and the most
+    data shards a process held, to ``out_dir/threads{rank}.json``."""
+    import threading
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives
+    from repro_torch.launch.sharded import train_rank_program
+    from repro_torch.train import step as step_mod
+
+    calls = dict(main=0, threads=[], data_shards=0)
+
+    def watched(fn, name):
+        def call(*args, **kw):
+            if threading.current_thread() is threading.main_thread():
+                calls["main"] += 1
+            else:
+                calls["threads"].append(name)
+            return fn(*args, **kw)
+        return call
+
+    collectives._all_gather_single = watched(collectives._all_gather_single, "all_gather")
+    for name in ("all_reduce", "batch_isend_irecv", "all_to_all_single", "broadcast"):
+        setattr(dist, name, watched(getattr(dist, name), name))
+    init = step_mod._MeshStep.__init__
+
+    def mesh_step_init(self, *args, **kw):
+        init(self, *args, **kw)
+        calls["data_shards"] = max(calls["data_shards"], len(self.shards))
+
+    step_mod._MeshStep.__init__ = mesh_step_init
+    train_rank_program(rank, world, inputs, out_dir, params)
+    pathlib.Path(out_dir, f"threads{rank}.json").write_text(json.dumps(calls))
+
+
 def tree_of(model, flat: dict):
     from repro_torch.train.optim import tree_from_paths
 
