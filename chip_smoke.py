@@ -195,7 +195,7 @@ the script exits non-zero without printing a result):
    zamba2-2.7b whole, qwen3-moe-235b-a22b at full width with 6 layers and
    llama4-maverick-400b-a17b at full width with 2 (the cuts and their
    memory arithmetic printed), bf16 from a seeded generator: parameter
-   and active-parameter counts equal to the CPU's, ``embed`` of 16,384
+   and active-parameter counts equal to the CPU's, ``embed`` of 8,192
    documents of 32 tokens in batches of 256 (seconds, tokens/s, peak
    memory, TFLOP/s over 2 × the active parameters outside
    ``embed``/``unembed``), every embedding finite and of unit norm within
@@ -208,7 +208,7 @@ the script exits non-zero without printing a result):
    frames encoded, 16 ``decode_step``s against ``decode_train``, held as
    rwkv6; (d) greedy
    ``generate`` of 16 tokens for 8 prompts of 16 on the four towers of (b);
-   (e) ``UGIndex.build`` over qwen3-moe's 16,384 embeddings (d = 4096)
+   (e) ``UGIndex.build`` over qwen3-moe's 8,192 embeddings (d = 4096)
    with the serve CLI's ``UGConfig``, a mixed search of 2,000 embedded
    queries cycling IF/IS/RS/RF at ef 64, k 10, W 4: QPS (median of 3),
    iterations, recall@10 per semantics against ``brute_force`` (tripwire:
@@ -365,6 +365,33 @@ the script exits non-zero without printing a result):
    process's peak over the one-device step's, its ``gather_s``, ``tp_s``
    and ``reduce_s`` printed.  It launches no kernel of the kernels line.
 
+18. tensor parallelism for rwkv6, zamba2 and encdec
+   (``rwkv_model``/``zamba``/``encdec``'s ``tp_groups``, planned by
+   ``shard_ctx.plan_groups``): rwkv6-1.6b at full width cut to 2 of its
+   24 layers (each model shard's 16 time-mix heads with their ``w_g``
+   columns, its channel-mix columns and vocab rows; ``w_ffn_r`` whole),
+   zamba2-2.7b at full width cut to one period (6 Mamba layers, each
+   shard's 40 Mamba heads, their ``w_in``/``conv_w`` columns read from
+   the gathered leaves and the gated norm's sums over ``model``, and one
+   site of the shared block, its heads and MLP columns split), and
+   seamless-m4t-medium at full width cut to 2 encoder and 2 decoder
+   layers (encoder, decoder and cross attention heads, MLP columns, its
+   vocab rows 2 ways; ``frame_proj`` whole; 256 seeded frames), B = 2,
+   S = 256 (``FAMILY_TP_CUTS``), each in float32 and zamba2 and
+   seamless-m4t in float64 too (``FAMILY_TP_FULL``).  Each run's
+   one-device step runs first, alone in this process, then two gloo
+   processes on (1, 2), forked from the server, take the donated steps of
+   each cell's runs in turn (``launch/sharded.py::tp_check_all``): step
+   1's parameters, loss and grad norm within ``FAMILY_TP_TOL`` of the
+   one-device step's (in float64 the parameters and loss within 1e-6;
+   rwkv6's in float32 too; the other float32 bounds 1.3-3 times the
+   largest distance over four seeds, where a one-device step from
+   weights moved by one rounding lies as far; seamless-m4t's float32
+   parameters are held in float64 only), the two processes equal, the
+   collective bytes each counted equal to the plan; each process's peak
+   over the one-device step's, its ``gather_s``, ``tp_s`` and
+   ``reduce_s`` printed.  It launches no kernel of the kernels line.
+
 Before the last lines the script checks that no process it started (the
 compiler, the spawned ranks, multiprocessing's resource tracker) is still
 running; the line before the kernels line gives the run's seconds and each
@@ -462,7 +489,7 @@ FAMILY_CUTS = {
         "an MoE block (128 experts + the shared expert): ~18.7 B parameters (37.4 GB in "
         "bf16) plus a 21.5 GB float32 temporary for one expert leaf"),
 }
-N_FAMILY_DOCS = 16_384         # (b): documents each full-width tower embeds
+N_FAMILY_DOCS = 8_192          # (b): documents each full-width tower embeds
 INDEX_ARCH = "qwen3-moe-235b-a22b"   # (e): the tower whose embeddings (d = 4096) are indexed
 N_FAMILY_QUERIES = 2_000       # (e): embedded queries of the mixed search
 N_FAMILY_CHECK = 4_096         # (e): rows of the cuda == torch build and search check
@@ -587,6 +614,53 @@ MOE_TP_CUT = (
     "parameters: experts, vocab, heads and router split) at 7.5 + 14.9 + 7.5 GB plus the "
     "reduce's copies of the largest expert leaf (~3.2 GB) = ~33 GB, so the two processes "
     "take ~66 GB and the one-device step runs before them, alone")
+# phase 18: rwkv6, zamba2 and encdec split along model, each cell at full width held to
+# one-device steps run first (as phase 17's), the three cells in one start of the ranks:
+# float32, and zamba2 and seamless-m4t in float64 too (their float32 parameters round too
+# far to be held to 1e-6, see FAMILY_TP_TOL); zamba2 takes one step a run (~5 s of gloo a
+# step: its w_in's whole float32 gradient summed over model)
+F32, F64 = (dict(dtype=d, steps=1, params=True) for d in ("float32", "float64"))
+FAMILY_TP_FULL = (
+    dict(arch="rwkv6-1.6b", layers=2, mesh=(1, 2), batch=2, seq=256, seed=0,
+         runs=[dict(F32, steps=2)]),
+    dict(arch="zamba2-2.7b", layers=6, mesh=(1, 2), batch=2, seq=256, seed=0,
+         runs=[F32, F64]),
+    dict(arch="seamless-m4t-medium", layers=2, enc_layers=2, frames=256, mesh=(1, 2), batch=2,
+         seq=256, seed=0, runs=[dict(F32, steps=2), F64]))
+FAMILY_TP_CUTS = {
+    "rwkv6-1.6b": (
+        "n_layers 24 -> 2 at full width (d 2,048, 32 heads of 64, d_ff 7,168, vocab 65,536), "
+        "float32, B = 2, S = 256: 378,058,752 parameters, one device ~1.5 GB params + 3.0 GB "
+        "moments + 1.5 GB gradients"),
+    "zamba2-2.7b": (
+        "n_layers 54 -> 6 at full width (d 2,560, d_inner 5,120 in 80 Mamba heads, state "
+        "64; the shared block's 32 heads, d_ff 10,240; vocab 32,000): one period, its 6 "
+        "Mamba layers and one shared-attention site, float32 and float64, B = 2, S = 256: "
+        "508,003,232 parameters"),
+    "seamless-m4t-medium": (
+        "enc_layers 12 -> 2, n_layers 12 -> 2 at full width (d 1,024, 16 heads, d_ff "
+        "4,096, vocab 256,206: 2-way split), float32 and float64, B = 2, S = 256 tokens "
+        "and 256 seeded frames: 601,268,224 parameters"),
+}
+# step 1 against the one-device step, (arch, dtype) -> (parameters under eps = 1e-3, or
+# None: held in float64; loss relative; grad norm relative).  Each bound is 1e-6, or 2-3
+# times the largest of seeds 0-3 where that is more (zamba2's and seamless-m4t's float32
+# grad norms 1.4 and 1.3 times: phase 18's seed 0 reads 1.2e-6 and 7.2e-3), on an H100
+# 80GB HBM3 at 700 W
+# (``python -m repro_torch.bench.split_rounding --seeds 0 1 2 3``; PERF.md section 6),
+# where a one-device step from weights moved by 2^-24 lies as far as the split does: in
+# float32 split / unsplit (2, 1) / perturbed, rwkv6 6.0e-7 / 8.7e-7 / 4.8e-7, 8.3e-8 / 8.3e-8
+# / 8.3e-8, 1.8e-5 / 2.7e-5 / 1.4e-5; zamba2 1.8e-6 / 1.8e-6 / 1.6e-6, 3.5e-7 / 5.3e-7 /
+# 5.3e-7, 7.0e-5 / 1.1e-4 / 2.0e-4; seamless-m4t 3.4e-4 / 4.1e-4 / 3.9e-4 (of a 5e-4 first
+# update: no float32 bound can tell a dropped gradient from rounding, so float64 holds its
+# parameters), 1.7e-5 / 3.0e-5 / 1.8e-5, 4.0e-2 / 3.5e-2 / 4.1e-2; the split in float64
+# (its norms, scans, attention and loss still round in float32) zamba2 2.6e-7, 8.8e-8,
+# 7.8e-6 and seamless-m4t 1.2e-7, 0, 1.7e-7
+FAMILY_TP_TOL = {("rwkv6-1.6b", "float32"): (TP_PARAM_TOL, 1e-6, 5e-5),
+                 ("zamba2-2.7b", "float32"): (5e-6, 1e-6, 1e-4),
+                 ("zamba2-2.7b", "float64"): (TP_PARAM_TOL, 1e-6, 2e-5),
+                 ("seamless-m4t-medium", "float32"): (None, 5e-5, 5e-2),
+                 ("seamless-m4t-medium", "float64"): (TP_PARAM_TOL, 1e-6, 1e-6)}
 # phases 13(c) and 14(d) leave their measured numbers here for phase 15
 MEASURED = {}
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
@@ -1913,7 +1987,7 @@ def phase9_sharded(dev, main, check50, smi) -> dict:
         _, procs_s = timed(lambda: spawn_ranks(rank_program, SHARD_PROCS,
                                                (str(inputs), str(ranks), params),
                                                backend="gloo", init_file=gloo_file,
-                                               timeout=300.0))
+                                               timeout=300.0, start="forkserver"))
         got = [dict(np.load(ranks / f"rank{r}.npz")) for r in range(SHARD_PROCS)]
         ids50, dist50 = built["f32", "cuda"][1]
         blocks, chunks = collective_inputs(mesh, "data")
@@ -3278,7 +3352,8 @@ def phase14_mesh(dev, smi) -> dict:
                 (str(work / "inputs_c.npz"), str(work / "c"),
                  dict(device="cuda", threads=max(1, (os.cpu_count() or 2) // MESH_PROCS),
                       save="arrays", jobs=jobs)),
-                backend="gloo", init_file=work / "init_c", timeout=MESH_SPAWN_TIMEOUT)
+                backend="gloo", init_file=work / "init_c", timeout=MESH_SPAWN_TIMEOUT,
+                start="forkserver")
     ranks = np.load(work / "c" / "rank0.npz")
     differ = sorted(k for k in want if not np.array_equal(ranks[k], want[k]))
     emit(phase=14, part="c", card=smi, procs=MESH_PROCS, jobs=[j["name"] for j in jobs],
@@ -3305,7 +3380,8 @@ def phase14_mesh(dev, smi) -> dict:
                 (None, str(work / "d"),
                  dict(device="cuda", threads=max(1, (os.cpu_count() or 2) // MESH_PROCS),
                       save="digests", jobs=jobs)),
-                backend="gloo", init_file=work / "init_d", timeout=MESH_SPAWN_TIMEOUT)
+                backend="gloo", init_file=work / "init_d", timeout=MESH_SPAWN_TIMEOUT,
+                start="forkserver")
     spawn_s = time.perf_counter() - t0
     logs = [json.loads((work / "d" / f"rank{r}.json").read_text()) for r in range(MESH_PROCS)]
     sums = np.load(work / "d" / "rank0.npz")
@@ -3726,6 +3802,85 @@ def phase17_moe_tensor_parallel(dev, smi) -> None:
     shutil.rmtree(work, ignore_errors=True)
 
 
+def phase18_family_tensor_parallel(dev, smi) -> None:
+    """rwkv6, zamba2 and encdec split along ``model`` at full width on the
+    card (see the module docstring)."""
+    import math
+    import shutil
+
+    import torch
+
+    from repro_torch.launch.hlo_analysis import mesh_step_collectives
+    from repro_torch.launch.mesh import Mesh, _process_grid
+    from repro_torch.launch.sharded import tp_check_all, tp_model
+
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "family_tp_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    threads = max(1, (os.cpu_count() or 2) // MESH_PROCS)
+    cells = tp_check_all([dict(c, opt=TRAIN_EPS_RULE, device=dev.type, threads=threads)
+                          for c in FAMILY_TP_FULL], work, MESH_PROCS, TP_SPAWN_TIMEOUT)
+    out, bad = [], {}
+    for cell in cells:
+        c = cell["params"]
+        procs = _process_grid(c["mesh"], MESH_PROCS)
+        dims = (c["batch"], c["seq"]) + ((c["frames"],) if "frames" in c else ())
+        runs = []
+        for j, ref in enumerate(cell["references"]):
+            dtype = c["runs"][j]["dtype"]
+            model = tp_model(c, dtype)
+            tol, loss_tol, norm_tol = FAMILY_TP_TOL[c["arch"], dtype]
+            name = f"{c['arch']} {dtype}"
+            per = []
+            for r, lg in enumerate(cell["logs"]):
+                got = lg["runs"][j]
+                coords = tuple(int(x) for x in divmod(r, procs[1]))
+                plan = mesh_step_collectives(model, Mesh(c["mesh"], ("data", "model"),
+                                                         torch.device("cpu"), procs, coords,
+                                                         {}), batch=dims).stats().by_type
+                rel = {k: abs(got[k][0] - ref[k]) / abs(ref[k]) for k in ("loss", "grad_norm")}
+                checks = dict(step1_loss=rel["loss"] <= loss_tol,
+                              step1_grad_norm=rel["grad_norm"] <= norm_tol,
+                              plan=all(b == plan for b in got["collective_bytes"]),
+                              finite=all(math.isfinite(v)
+                                         for v in got["loss"] + got["grad_norm"]))
+                if tol is not None:
+                    checks["params_step1"] = got["max_param_err"] <= tol
+                peak = got["peak_memory_allocated"]
+                per.append(dict(
+                    rank=r, peak_memory_allocated=peak,
+                    peak_ratio=peak / ref["peak_memory_allocated"] if peak else None,
+                    param_bytes=got["param_bytes"], max_param_err=got["max_param_err"],
+                    ms_per_step=[x * 1e3 for x in got["seconds"]],
+                    collective_ms=[{k.replace("_s", "_ms"): v * 1e3 for k, v in t.items()}
+                                   for t in got["timing"]],
+                    tokens_per_s=[c["batch"] * c["seq"] / x for x in got["seconds"]],
+                    loss=got["loss"], grad_norm=got["grad_norm"], rel_err_step1=rel,
+                    collective_bytes=got["collective_bytes"], plan_by_type=plan,
+                    checks=checks))
+                if not all(checks.values()):
+                    bad[f"{name} rank {r}"] = checks
+            same = all((p["loss"], p["grad_norm"]) == (per[0]["loss"], per[0]["grad_norm"])
+                       for p in per)
+            if not same:
+                bad[f"{name} ranks"] = "the processes report different losses or grad norms"
+            runs.append(dict(
+                dtype=dtype, params=model.cfg.param_count(),
+                tolerance=dict(params_step1=(f"{tol} under AdamWConfig(eps=1e-3)"
+                                             if tol is not None else "held in float64"),
+                               step1_loss_rel=loss_tol, step1_grad_norm_rel=norm_tol),
+                one_device={k: v for k, v in ref.items() if k != "kept"},
+                per_process=per, ranks_agree=same))
+        out.append(dict(arch=c["arch"], cut=FAMILY_TP_CUTS[c["arch"]], runs=runs,
+                        seconds_at=[lg["marks"] for lg in cell["logs"]],
+                        started_after_s=[lg["started_at"] - cell["wall"]
+                                         for lg in cell["logs"]]))
+    emit(phase=18, card=smi, mesh=FAMILY_TP_FULL[0]["mesh"], procs=MESH_PROCS, cells=out,
+         spawn_seconds=cells[0]["spawn_seconds"], seconds=time.perf_counter() - t0)
+    check(not bad, f"18: the families' tensor-parallel step's checks failed: {bad}")
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def result_on_cpu(res):
     """A card result's tensors on the CPU."""
     from repro_torch.core import SearchResult
@@ -3776,6 +3931,7 @@ def main() -> int:
     dryrun_launches = run(15, phase15_dryrun, dev, smi)
     run(16, phase16_tensor_parallel, dev, smi)
     run(17, phase17_moe_tensor_parallel, dev, smi)
+    run(18, phase18_family_tensor_parallel, dev, smi)
     stop_forkserver()
 
     kernels = []

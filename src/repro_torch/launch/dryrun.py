@@ -22,8 +22,12 @@ moves, a peer's block is the card's own).  A cell counts that card's work:
   and experts (the groups its specs split) with its blocks gathered along
   the data axes, and the planned model-axis sums; an MoE layer routes
   the card's tokens whole and dispatches them, as one shard of the step's
-  global dispatch, to the card's experts.  Every other family gathers the
-  whole parameters, so the cards of a data shard repeat its work.  Then
+  global dispatch, to the card's experts.  rwkv6, zamba2 and encdec run
+  it tensor-parallel too: the card computes its shard's RWKV6 time-mix
+  heads and channel-mix columns, Mamba2 heads and the shared block's,
+  encoder, decoder and cross attention heads and MLP columns, and vocab
+  rows where they divide, the groups that do not divide ``model`` whole
+  (``transformer.tp_plan``).  Then
   the gradients' float32 blocks, the global norm and AdamW on the card's
   blocks, with bf16 moments for MoE configs (the reference's
   ``state_dtype``);
@@ -174,7 +178,9 @@ def build_cell(arch_name: str, shape_name, mesh: Mesh, *, cfg=None):
         b_bytes = sum(_block_bytes(t, card, bspec) for t in batch.values())
         donated = p_bytes + m_bytes + 4                   # params, moments, step: aliased
         mem = dict(argument=donated + b_bytes, output=donated + 4, alias=donated)
-        plan = mesh_step_collectives(model, card, batch=(B, S))
+        dims = tuple(batch["tokens"].shape) + (
+            (batch["frames"].shape[1],) if "frames" in batch else ())   # encdec: S_enc
+        plan = mesh_step_collectives(model, card, batch=dims)
         return (lambda: _train_step(model, ocfg, card, batch)), mem, plan
 
     plan = CollectivePlan()

@@ -282,39 +282,65 @@ def _moe_layers(cfg) -> int:
     return cfg.n_layers // cfg.moe_every if cfg.moe_every > 1 else cfg.n_layers
 
 
-def _tp_sums(plan: CollectivePlan, cfg, split, mesh, rows: int, S: int) -> None:
+def _tp_sums(plan: CollectivePlan, cfg, split, mesh, rows: int, S: int, S_enc: int = 0) -> None:
     """One data shard's model-axis sums (``shard_ctx``'s ``enter`` and
     ``leave``, ``collectives.ordered_sum``; the vocab max) in a forward and
-    backward of the tensor-parallel decoder: the embedding's rows; each
-    split region of a layer (attention; the MLP, or in an MoE layer the
-    experts and the shared expert) summed in the forward, again in its
-    checkpointed recompute, and its input gradient in the backward, and
-    an MoE layer's gate values' gradient (``(rows · S, top_k)`` float32) in
-    the backward; each loss chunk's max and its ``(2, rows, C)`` exp sums
-    and gold logits, in the forward and the recompute, and the chunk's
-    input gradient."""
+    backward of the tensor-parallel step: the embedding's rows; each split
+    region of a layer summed in the forward, again in its checkpointed
+    recompute, and its input gradient in the backward — the decoder's
+    attention and MLP (an MoE layer's experts and shared expert, and its
+    gate values' gradient, ``(rows · S, top_k)`` float32, in the
+    backward), RWKV6's time-mix and channel-mix, Mamba2's heads with their
+    gated norm's ``(rows, S, 1)`` float32 sums of squares, zamba2's shared
+    block at each site, encdec's encoder (over ``S_enc`` frames) and
+    decoder self and cross attention and MLPs, and the encoder's output
+    entering the cross attention once (its gradient, in the backward);
+    each loss chunk's max and its ``(2, rows, C)`` exp sums and gold
+    logits, in the forward and the recompute, and the chunk's input
+    gradient."""
     local, item = mesh.local("model"), torch.empty((), dtype=cfg.dtype).element_size()
     across = spans(mesh, "model")
 
-    def ordered(nbytes):
-        plan.add("all-reduce", "tp_sums", local * nbytes, across,
-                 local * nbytes * mesh.procs[mesh.axes.index("model")])
+    def ordered(nbytes, times=1):
+        for _ in range(times):
+            plan.add("all-reduce", "tp_sums", local * nbytes, across,
+                     local * nbytes * mesh.procs[mesh.axes.index("model")])
 
     act = rows * S * cfg.d_model * item
     passes = 3 if cfg.remat else 2
     if "vocab" in split:
         ordered(act)
-    n_moe = _moe_layers(cfg)         # a tensor-parallel MoE layer always splits its experts
-    regions = {"heads": cfg.n_layers,  # the layers each region runs in
-               "mlp": cfg.n_layers - n_moe + (n_moe if cfg.n_shared_experts else 0)}
-    for group, layers in regions.items():
-        if group in split:
-            for _ in range(layers * passes):
-                ordered(act)
-    for _ in range(n_moe):           # the experts' region, and the gate values' gradient
-        for _ in range(passes):
-            ordered(act)
-        ordered(rows * S * cfg.top_k * 4)
+    if cfg.family == "decoder":
+        n_moe = _moe_layers(cfg)       # a tensor-parallel MoE layer always splits its experts
+        regions = {"heads": cfg.n_layers,  # the layers each region runs in
+                   "mlp": cfg.n_layers - n_moe + (n_moe if cfg.n_shared_experts else 0)}
+        for group, layers in regions.items():
+            if group in split:
+                ordered(act, layers * passes)
+        for _ in range(n_moe):         # the experts' region, and the gate values' gradient
+            ordered(act, passes)
+            ordered(rows * S * cfg.top_k * 4)
+    elif cfg.family == "rwkv6":
+        for group in ("heads", "mlp"):
+            if group in split:
+                ordered(act, cfg.n_layers * passes)
+    elif cfg.family == "zamba2":
+        if "ssm_heads" in split:
+            ordered(act, cfg.n_layers * passes)
+            ordered(rows * S * 4, cfg.n_layers * passes)
+        sites = max(cfg.n_layers // cfg.attn_every, 1)
+        for group in ("heads", "mlp"):
+            if group in split:
+                ordered(act, sites * passes)
+    else:                              # encdec
+        enc = rows * S_enc * cfg.d_model * item
+        layers = cfg.enc_layers or cfg.n_layers
+        for group in ("heads", "mlp"):
+            if group in split:
+                ordered(enc, layers * passes)
+                ordered(act, cfg.n_layers * passes * (2 if group == "heads" else 1))
+        if "heads" in split:
+            ordered(enc)
     if "vocab" in split:
         C = min(cfg.logits_chunk, S)
         for _ in range(-(-S // C)):
@@ -325,18 +351,20 @@ def _tp_sums(plan: CollectivePlan, cfg, split, mesh, rows: int, S: int) -> None:
 
 
 def mesh_step_collectives(model, mesh, *, microbatches: int = 1,
-                          batch: tuple[int, int] | None = None) -> CollectivePlan:
+                          batch: tuple[int, ...] | None = None) -> CollectivePlan:
     """One step of ``train/step.py::_MeshStep`` on ``mesh``, a process:
     the parameters' gather, each microbatch's MoE count exchanges (one
     ``(2, E)`` int64 vector a layer and a data shard) and loss sums, the
     float32 gradients' reduce, the global norm's two maxima (its scale and
     its cells) over every axis, and the MoE's dropped count.  Where the
-    step is tensor-parallel (a decoder, several ``model`` shards) the
-    gather is along the data axes only (an MoE router's along ``model``
-    too, ``transformer.tp_gathered``), each data shard's model-axis sums
-    are added (:func:`_tp_sums`; ``batch`` is the global ``(B, S)``), and
-    each partial leaf's float32 gradients are summed over ``model`` before
-    the data axes."""
+    step is tensor-parallel (several ``model`` shards) the
+    gather is along the data axes only (the leaves that run whole, an MoE
+    router's, Mamba2's ``w_in``, along ``model`` too,
+    ``transformer.tp_gathered``), each data shard's model-axis sums
+    are added (:func:`_tp_sums`; ``batch`` is the global ``(B, S)``, and
+    for encdec ``(B, S, S_enc)`` with the frames' length), and each
+    partial leaf's float32 gradients are summed over ``model`` before the
+    data axes."""
     from repro_torch.models import transformer
 
     cfg = model.cfg
@@ -349,7 +377,7 @@ def mesh_step_collectives(model, mesh, *, microbatches: int = 1,
     split, partial = tp or ((), ())
     if tp and batch is None:
         raise ValueError(f"{cfg.name}: the tensor-parallel step's plan needs the batch's (B, S)")
-    whole = transformer.tp_gathered(cfg) if tp else frozenset()
+    whole = transformer.tp_gathered(cfg, model.specs(mesh)) if tp else frozenset()
     for path, t in shapes.items():
         plan.gather("param_gather", block_shape(t.shape, mesh, specs[path]),
                     t.element_size(), mesh, specs[path],
@@ -361,7 +389,7 @@ def mesh_step_collectives(model, mesh, *, microbatches: int = 1,
         if tp:
             rows = batch[0] // microbatches // math.prod(mesh.size(a) for a in dp)
             for _ in range(math.prod(grid)):
-                _tp_sums(plan, cfg, split, mesh, rows, batch[1])
+                _tp_sums(plan, cfg, split, mesh, rows, *batch[1:])
         plan.gather("loss_sums", grid + [3], 4, mesh, P(*dp))
     for path, t in shapes.items():
         if path in partial:

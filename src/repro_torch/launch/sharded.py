@@ -27,7 +27,9 @@ gathered results to one process's bit for bit.  :func:`tp_check_rank`
 holds the tensor-parallel mesh step at an arch's full width against the
 one-device step, a rank's blocks at a time, or against a one-device step
 that :func:`tp_reference` ran before the ranks started (where the card
-cannot hold both).
+cannot hold both); :func:`tp_check_cells` runs it for several archs in one
+start of the ranks, and :func:`tp_check_all` runs their one-device steps
+first, then those ranks.
 """
 from __future__ import annotations
 
@@ -317,7 +319,8 @@ def train_rank_program(rank: int, world: int, inputs: str | None, out_dir: str,
       model)`` shape), ``opt`` (``AdamWConfig`` fields), ``microbatches``,
       ``steps``; the whole initial parameters from the npz ``inputs``
       (``<name>/p/<path>``) or ``model.init`` on the device from ``seed``;
-      the batches from the npz (``<name>/b<i>/<key>``) or ``lm_batch`` of
+      the batches from the npz (``<name>/b<i>/<key>``, ``frames`` too for
+      an encoder-decoder) or ``lm_batch`` of
       ``(vocab, batch, seq)`` at each step;
     * ``"ep"``: the layer's config (``cfg`` fields, or ``arch`` at full
       width with one layer), ``dtype``, ``mesh`` as ``(shape, axes)``; the
@@ -368,8 +371,9 @@ def train_rank_program(rank: int, world: int, inputs: str | None, out_dir: str,
                 mesh = make_mesh(job["mesh"], ("data", "model"), device=dev)
                 if f"{name}/b0/tokens" in keys:
                     full = subtree(f"{name}/p/", model.shapes())
-                    batches = [{k: tensor(f"{name}/b{i}/{k}") for k in ("tokens", "labels",
-                                                                         "mask")}
+                    batches = [{k: tensor(f"{name}/b{i}/{k}")
+                                for k in ("tokens", "labels", "mask", "frames")
+                                if f"{name}/b{i}/{k}" in keys}
                                for i in range(job["steps"])]
                 else:
                     full = model.init(torch.Generator(device=dev).manual_seed(job.get("seed", 0)))
@@ -417,26 +421,43 @@ def train_rank_program(rank: int, world: int, inputs: str | None, out_dir: str,
     (pathlib.Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(log))
 
 
-def _tp_model(params: dict, dtype: str):
+def tp_model(params: dict, dtype: str):
     """The model a tensor-parallel check runs: ``params["arch"]`` (its
     reduced config where ``params["reduced"]``) cut to ``params["layers"]``
-    layers, in ``dtype``."""
+    layers (an encoder-decoder's encoder to ``params["enc_layers"]``, else
+    as many), in ``dtype``."""
     import dataclasses
 
     from repro_torch.configs import get_arch
     from repro_torch.models import get_model
 
     spec = get_arch(params["arch"])
-    return get_model(dataclasses.replace(spec.reduced if params.get("reduced") else spec.config,
-                                         n_layers=params["layers"], dtype=getattr(torch, dtype)))
+    cfg = spec.reduced if params.get("reduced") else spec.config
+    cut = dict(n_layers=params["layers"])
+    if cfg.family == "encdec":
+        cut["enc_layers"] = params.get("enc_layers", params["layers"])
+    return get_model(dataclasses.replace(cfg, **cut, dtype=getattr(torch, dtype)))
+
+
+def tp_batch(cfg, params: dict, step: int, dev) -> dict:
+    """Step ``step``'s ``lm_batch`` of a tensor-parallel check: ``params
+    ["batch"]`` rows of ``params["seq"]`` tokens, and for an
+    encoder-decoder ``params["frames"]`` (default ``seq``) frames of
+    ``d_model`` drawn from the same seed."""
+    from repro_torch.data import LMDataConfig, lm_batch
+
+    enc = cfg.family == "encdec"
+    return lm_batch(LMDataConfig(cfg.vocab, params["batch"], params["seq"]), step,
+                    frames_dim=cfg.d_model if enc else 0,
+                    frames_len=params.get("frames", params["seq"]) if enc else 0, device=dev)
 
 
 def tp_check_rank(rank: int, world: int, out_dir: str, params: dict) -> None:
     """One rank of a check of the tensor-parallel mesh step at an arch's
     full width, once a run of ``params["runs"]``: the donated mesh steps
     on ``params["mesh"]`` (``(data, model)``) from ``model.init`` at
-    ``seed`` over ``lm_batch``es in the run's dtype, its peak memory over
-    the first step (from the blocks and moments held); then the one-device
+    ``seed`` over the :func:`tp_batch` batches in the run's dtype, its peak
+    memory over the first step (from the blocks and moments held); then the one-device
     step from the same weights on the first batch, its loss, grad norm and
     peak memory (from its parameters and moments held, less the blocks
     kept).  Where the run has ``params`` each rank keeps its blocks after
@@ -449,7 +470,8 @@ def tp_check_rank(rank: int, world: int, out_dir: str, params: dict) -> None:
     one-device numbers.
 
     ``params``: ``arch`` (its reduced config where ``reduced``), ``layers``
-    (the depth it is cut to), ``runs`` (``{"dtype": ..., "steps": ...,
+    (the depth it is cut to; ``enc_layers`` and ``frames`` for an
+    encoder-decoder, :func:`tp_batch`), ``runs`` (``{"dtype": ..., "steps": ...,
     "params": bool, "reference": path (optional)}`` each, in order),
     ``mesh``, ``batch``, ``seq``, ``opt`` (``AdamWConfig`` fields),
     ``seed``, ``device``, ``threads``.  Writes ``out_dir/rank{rank}.json``:
@@ -464,7 +486,6 @@ def tp_check_rank(rank: int, world: int, out_dir: str, params: dict) -> None:
     each part ended (``marks``)."""
     import json
 
-    from repro_torch.data import LMDataConfig, lm_batch
     from repro_torch.distributed.collectives import counts, reset_counts
     from repro_torch.kernels.util import resolve_device
     from repro_torch.launch.shardings import shard_leaf, shard_tree
@@ -502,8 +523,7 @@ def tp_check_rank(rank: int, world: int, out_dir: str, params: dict) -> None:
             torch.cuda.empty_cache()
 
     def run(dtype: str, steps: int, compare: bool, reference=None) -> dict:
-        model = _tp_model(params, dtype)
-        data = LMDataConfig(model.cfg.vocab, params["batch"], params["seq"])
+        model = tp_model(params, dtype)
         spec_of = dict(tree_leaves(model.specs(mesh)))
         init = lambda: model.init(torch.Generator(device=dev).manual_seed(params["seed"]))  # noqa: E731
         ref = torch.load(reference, map_location="cpu") if reference else None
@@ -520,7 +540,7 @@ def tp_check_rank(rank: int, world: int, out_dir: str, params: dict) -> None:
         out["param_bytes"] = sum(t.numel() * t.element_size() for _, t in tree_leaves(blocks))
         first = {}
         for i in range(steps):
-            batch = lm_batch(data, i, device=dev)
+            batch = tp_batch(model.cfg, params, i, dev)
             step.timing = {}
             if i == 0:
                 peak_from_here()
@@ -562,7 +582,7 @@ def tp_check_rank(rank: int, world: int, out_dir: str, params: dict) -> None:
             o1 = optim.init(ocfg, full)
             peak_from_here()
             full, o1, m1 = make_train_step(model, ocfg, donate=True)(
-                full, o1, lm_batch(data, 0, device=dev))
+                full, o1, tp_batch(model.cfg, params, 0, dev))
             out["one_device_peak_memory_allocated"] = peak(base)
             out["one_device_loss"] = float(m1["loss"])
             out["one_device_grad_norm"] = float(m1["grad_norm"])
@@ -585,6 +605,51 @@ def tp_check_rank(rank: int, world: int, out_dir: str, params: dict) -> None:
             log["runs"].append(run(r["dtype"], r["steps"], r["params"], r.get("reference")))
     mark("end")
     (pathlib.Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(log))
+
+
+def tp_check_cells(rank: int, world: int, out_dir: str, cells: list) -> None:
+    """:func:`tp_check_rank` of each of ``cells`` (its ``params``) in turn in
+    one process group, cell ``i``'s records in ``out_dir/i`` (made by the
+    caller): one start of the ranks for several archs."""
+    for i, params in enumerate(cells):
+        tp_check_rank(rank, world, str(pathlib.Path(out_dir) / str(i)), params)
+
+
+def tp_check_all(cells: list, work, world: int = 2, timeout: float = 120.0) -> list[dict]:
+    """Hold each of ``cells`` (:func:`tp_check_rank`'s ``params``) to its
+    one-device steps: every run's :func:`tp_reference` first, alone in
+    this process, then :func:`tp_check_cells` in ``world`` ranks forked
+    from the server (:func:`start_forkserver`), over gloo.  ``work`` is a
+    directory that does not exist yet.  Returns a record a cell: its
+    ``params`` with each run's ``reference`` path, the one-device records
+    (``references``, one a run, each with its ``wall_seconds``, the step's
+    set-up and parameters kept included), each rank's log (``logs``) and the ranks' ``spawn_seconds``
+    and wall-clock start (``wall``)."""
+    import json
+
+    work = pathlib.Path(work)
+    out = []
+    for i, params in enumerate(cells):
+        (work / str(i)).mkdir(parents=True)
+        runs = [dict(r, reference=str(work / str(i) / f"one_device_{j}.pt"))
+                for j, r in enumerate(params["runs"])]
+        params = dict(params, runs=runs)
+        refs = []
+        for r in runs:
+            t0 = time.perf_counter()
+            refs.append(dict(tp_reference(params, r, r["reference"]),
+                             wall_seconds=time.perf_counter() - t0))
+        out.append(dict(params=params, references=refs))
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    wall, t0 = time.time(), time.perf_counter()
+    spawn_ranks(tp_check_cells, world, (str(work), [c["params"] for c in out]),
+                init_file=work / "init", timeout=timeout, start="forkserver")
+    for i, c in enumerate(out):
+        c.update(logs=[json.loads((work / str(i) / f"rank{r}.json").read_text())
+                       for r in range(world)],
+                 spawn_seconds=time.perf_counter() - t0, wall=wall)
+    return out
 
 
 def _max_err_kept(kept: dict, blocks: dict, mesh, spec_of: dict) -> float:
@@ -617,7 +682,7 @@ def _max_err_kept(kept: dict, blocks: dict, mesh, spec_of: dict) -> float:
 def tp_reference(params: dict, run: dict, path) -> dict:
     """The one-device step :func:`tp_check_rank` holds a run with a
     ``reference`` to, run in the calling process before the ranks start:
-    from ``model.init`` at ``params["seed"]`` on ``lm_batch`` 0 in the
+    from ``model.init`` at ``params["seed"]`` on :func:`tp_batch` 0 in the
     run's dtype, its loss, grad norm and aux, the assignments its dispatch
     drops (counted in a forward without gradients before it), its seconds
     and peak memory, and the parameters after it: each leaf of at most
@@ -626,8 +691,10 @@ def tp_reference(params: dict, run: dict, path) -> dict:
     every ``model`` shard along that dimension (an expert leaf's first and
     last expert of each shard, the vocab leaves' first and last rows).
     Writes them to ``path`` (``torch.save``, on the host) and returns the
-    record without the parameters."""
-    from repro_torch.data import LMDataConfig, lm_batch
+    record without the parameters.  Where ``params`` has ``perturb`` the
+    step starts from the weights each scaled by ``1 + perturb · N(0, 1)``
+    (a generator seeded from ``seed`` + 1): how far the step moves when
+    its weights move by that much."""
     from repro_torch.kernels.util import resolve_device
     from repro_torch.models import moe
     from repro_torch.train import AdamWConfig, make_train_step, optim
@@ -635,16 +702,21 @@ def tp_reference(params: dict, run: dict, path) -> dict:
 
     dev = resolve_device(params["device"])
     on_card = dev.type == "cuda"
-    model = _tp_model(params, run["dtype"])
+    model = tp_model(params, run["dtype"])
     cfg = model.cfg
     mesh = make_mesh(params["mesh"], ("data", "model"), device=dev)
     size = mesh.size("model")
     ocfg = AdamWConfig(**params["opt"])
-    batch = lm_batch(LMDataConfig(cfg.vocab, params["batch"], params["seq"]), 0, device=dev)
+    batch = tp_batch(cfg, params, 0, dev)
     if on_card:
         torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated(dev) if on_card else 0
     full = model.init(torch.Generator(device=dev).manual_seed(params["seed"]))
+    if params.get("perturb"):
+        g = torch.Generator(device=dev).manual_seed(params["seed"] + 1)
+        for _, t in tree_leaves(full):
+            t.mul_(1 + params["perturb"] * torch.randn(t.shape, generator=g, dtype=t.dtype,
+                                                       device=dev))
     routes, original = [], moe._router
 
     def recording(cfg_, xt, w):

@@ -32,7 +32,10 @@ one partial contribution a ``model`` shard, summed in shard order before
 the data axes (``partial=``).  A leaf it gathers along ``model`` too (the
 MoE router, ``gather_tree(..., whole=)``) computes whole on every shard, so
 its contributions are complete and the block's part of them is taken
-(``held=()``).
+(``held=()``); one gathered and then read a shard's columns at a time
+(Mamba2's ``w_in`` and ``conv_w``) is partial as well: its contributions
+are summed over ``model`` first, then its block taken (``partial=`` and
+``held=()``).
 """
 from __future__ import annotations
 

@@ -13,7 +13,9 @@ The reference pins some tensors' sharding (``shard_ctx.constrain``); on one
 card that is the identity, and the port has no such calls.  Under a
 tensor-parallel context (``shard_ctx.tensor_parallel``, the mesh train
 step) the full-sequence paths compute this process's ``model`` shards'
-heads, ``wo`` row-parallel.
+heads, ``wo`` row-parallel; cross attention (:func:`cross_kv_shards`,
+:func:`gqa_cross`) too, each shard making and reading only its kv heads'
+K/V.
 """
 from __future__ import annotations
 
@@ -189,41 +191,45 @@ def gqa_qkv(cfg: ModelConfig, p, x, positions):
     return _queries(cfg, p, x, positions), rope(k, positions, cfg.rope_theta), v
 
 
-def gqa_attend(cfg: ModelConfig, p, x, positions, *, causal=True, kv=None,
-               cache=None, cache_len=None):
-    """Full GQA block: returns (out, new_kv_for_cache).
+def gqa_attend(cfg: ModelConfig, p, x, positions, *, causal=True, cache=None, cache_len=None):
+    """Full GQA self-attention block: returns (out, new_kv_for_cache).
 
-    ``kv``: externally supplied (k, v) for cross-attention.
     ``cache``/``cache_len``: decode path — append one step, score vs cache.
+    Cross attention is :func:`cross_kv_shards` and :func:`gqa_cross`.
     """
-    if kv is None and cache is None:
+    if cache is None:
         return _gqa_self(cfg, p, x, positions, causal)
-    if kv is None:
-        q, k, v = gqa_qkv(cfg, p, x, positions)
-    else:
-        q = _queries(cfg, p, x, positions)
-        k, v = kv
-
-    if cache is not None:
-        k_cache, v_cache = cache
-        k_cache = _scatter_step(k_cache, k, cache_len)
-        v_cache = _scatter_step(v_cache, v, cache_len)
-        out = decode_attention(q, k_cache, v_cache, cache_len + 1)
-        return _merge_heads(out, p["wo"]), (k_cache, v_cache)
-
-    out = flash_attention(q, k, v, causal=causal)
-    return _merge_heads(out, p["wo"]), (k, v)
+    q, k, v = gqa_qkv(cfg, p, x, positions)
+    k_cache, v_cache = cache
+    k_cache = _scatter_step(k_cache, k, cache_len)
+    v_cache = _scatter_step(v_cache, v, cache_len)
+    out = decode_attention(q, k_cache, v_cache, cache_len + 1)
+    return _merge_heads(out, p["wo"]), (k_cache, v_cache)
 
 
-def _gqa_self(cfg: ModelConfig, p, x, positions, causal: bool):
-    """Self-attention over ``x``: ``(out, (k, v))``.  Under a context that
-    splits "heads" each local shard takes its query heads (``wq``, ``bq``)
+def tp_groups(cfg: ModelConfig, prefix: tuple, stacked: bool) -> list[shard_ctx.Group]:
+    """The split groups of the GQA block under ``prefix`` (``stacked``: its
+    leaves have a leading layer dimension): its query heads, their norms
+    partial, and its kv heads within them."""
+    o = 1 if stacked else 0
+    heads = {prefix + ("wq",): o + 1, prefix + ("wo",): o}
+    kv = {prefix + ("wk",): o + 1, prefix + ("wv",): o + 1}
+    if cfg.qkv_bias:
+        heads[prefix + ("bq",)] = o
+        kv.update({prefix + ("bk",): o, prefix + ("bv",): o})
+    norms = tuple(prefix + (k,) for k in ("q_norm", "k_norm")) if cfg.qk_norm else ()
+    return [shard_ctx.Group("heads", heads, partial=norms),
+            shard_ctx.Group("kv_heads", kv, within="heads")]
+
+
+def _shard_heads(cfg: ModelConfig, p, tp) -> list[tuple[dict, list[int] | None]]:
+    """Each local shard's attention leaves under ``tp`` (which splits
+    "heads"): its query heads (``wq``, ``bq``, ``wo``), the norms' copies,
     and the kv heads they read: its block of ``wk``/``wv`` where the kv
     heads are split too, else those heads of its copy of the replicated
-    leaves (query head ``h`` reads kv head ``h // (H / KV)``); ``wo`` is
-    row-parallel, the shards' partials summed over ``model``.  The (k, v)
-    returned are the last local shard's."""
-    tp = shard_ctx.split("heads")
+    leaves (query head ``h`` reads kv head ``h // (H / KV)``); with the
+    order its query heads read its kv heads in, where that is not
+    ``expand_kv``'s (else ``None``)."""
     H, KV = cfg.n_heads, cfg.n_kv_heads
     hs, group = H // tp.size, H // KV
     kv_split = "kv_heads" in tp.split
@@ -233,8 +239,8 @@ def _gqa_self(cfg: ModelConfig, p, x, positions, causal: bool):
            **({"bq": tp.shards(p["bq"], -2)} if cfg.qkv_bias else {}),
            **{k: tp.copies(p[k]) for k in norms},
            **{k: (tp.shards(p[k], -2) if kv_split else tp.copies(p[k])) for k in kv_names}}
-    parts = []
-    for j, xj in enumerate(tp.enter(x)):
+    out = []
+    for j in range(tp.local):
         pj = {k: v[j] for k, v in per.items()}
         h0 = tp.shard(j) * hs
         reads = [h // group for h in range(h0, h0 + hs)]     # the kv head of each query head
@@ -243,13 +249,63 @@ def _gqa_self(cfg: ModelConfig, p, x, positions, causal: bool):
         if not kv_split:
             for k in kv_names:
                 pj[k] = pj[k][..., lo:lo + reads[-1] + 1, :]
+        kv_heads = reads[-1] + 1
+        out.append((pj, None if reads == [h // (hs // kv_heads) for h in range(hs)]
+                    else reads))                              # else not expand_kv's order
+    return out
+
+
+def _read_order(k, v, reads):
+    if reads is None:
+        return k, v
+    idx = torch.tensor(reads, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _gqa_self(cfg: ModelConfig, p, x, positions, causal: bool):
+    """Self-attention over ``x``: ``(out, (k, v))``.  Under a context that
+    splits "heads" each local shard takes its query heads and the kv heads
+    they read (:func:`_shard_heads`); ``wo`` is row-parallel, the shards'
+    partials summed over ``model``.  The (k, v) returned are the last
+    local shard's."""
+    tp = shard_ctx.split("heads")
+    parts = []
+    for xj, (pj, reads) in zip(tp.enter(x), _shard_heads(cfg, p, tp)):
         q, k, v = gqa_qkv(cfg, pj, xj, positions)
-        if reads != [h // (hs // k.shape[2]) for h in range(hs)]:   # not expand_kv's order
-            idx = torch.tensor(reads, device=k.device)
-            k, v = k.index_select(2, idx), v.index_select(2, idx)
+        k, v = _read_order(k, v, reads)
         out = flash_attention(q, k, v, causal=causal)
         parts.append(_merge_heads(out, pj["wo"]))
     return tp.leave(parts), (k, v)
+
+
+def cross_kv_shards(cfg: ModelConfig, p, source, positions) -> list:
+    """Cross attention's (K, V) of ``source`` (the encoder's output, one
+    copy a local shard as :meth:`~shard_ctx.TensorParallel.enter` gives
+    them) for each local shard of the context that splits "heads" (one,
+    every head, without one): its kv heads' K (roped at ``positions``) and
+    V, in the order its query heads read them."""
+    tp = shard_ctx.split("heads")
+    out = []
+    for sj, (pj, reads) in zip(source, _shard_heads(cfg, p, tp)):
+        k, v = _heads(sj, pj["wk"]), _heads(sj, pj["wv"])
+        if cfg.qkv_bias:
+            k, v = k + pj["bk"], v + pj["bv"]
+        if cfg.qk_norm:
+            k = rms_norm(k, pj["k_norm"], cfg.norm_eps)
+        out.append(_read_order(rope(k, positions, cfg.rope_theta), v, reads))
+    return out
+
+
+def gqa_cross(cfg: ModelConfig, p, x, positions, kvs: list):
+    """Cross attention of ``x`` over each local shard's ``(K, V)`` of
+    :func:`cross_kv_shards`, under the context that splits "heads" (one
+    shard without one): each shard's query heads, ``wo`` row-parallel."""
+    tp = shard_ctx.split("heads")
+    parts = []
+    for xj, (pj, _), (k, v) in zip(tp.enter(x), _shard_heads(cfg, p, tp), kvs):
+        out = flash_attention(_queries(cfg, pj, xj, positions), k, v, causal=False)
+        parts.append(_merge_heads(out, pj["wo"]))
+    return tp.leave(parts)
 
 
 def _scatter_step(cache: torch.Tensor, step: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:

@@ -15,8 +15,11 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models.common import ModelConfig, remat, rms_norm, rope, swiglu
-from repro_torch.models.transformer import _stack, layer, lm_loss, unembed, unstack
+from repro_torch.models import shard_ctx
+from repro_torch.models.common import ModelConfig, remat, rms_norm, swiglu
+from repro_torch.models.transformer import (
+    _stack, embed_tokens, layer, lm_loss, unembed, unstack,
+)
 
 
 def _ffn_params(cfg, b, L, lax_):
@@ -56,6 +59,24 @@ def build_params(cfg: ModelConfig, b):
     }
 
 
+def tp_groups(cfg: ModelConfig) -> tuple[list[shard_ctx.Group], tuple]:
+    """The groups the tensor-parallel step may split along ``model``
+    (``shard_ctx.plan_groups``), and the leaves that always run whole: the
+    encoder's, the decoder's and the cross attention's heads, the MLPs'
+    columns, the vocab; ``frame_proj``, whose columns are the encoder
+    input's channels, whole (as RWKV6's ``w_ffn_r``)."""
+    mlp = {}
+    for stack in ("encoder", "decoder"):
+        m = (stack, "mlp")
+        mlp.update({m + ("w_gate",): 2, m + ("w_up",): 2, m + ("w_down",): 1})
+    return ([g for prefix in (("encoder", "attn"), ("decoder", "self_attn"),
+                              ("decoder", "cross_attn"))
+             for g in attn.tp_groups(cfg, prefix, stacked=True)]
+            + [shard_ctx.Group("mlp", mlp),
+               shard_ctx.Group("vocab", {("embed",): 0, ("unembed",): 1})],
+            (("frame_proj",),))
+
+
 def _ffn(p_l, h):
     return swiglu(h, p_l["mlp"]["w_gate"], p_l["mlp"]["w_up"], p_l["mlp"]["w_down"])
 
@@ -83,7 +104,9 @@ def encode(cfg: ModelConfig, params, frames):
     return rms_norm(x, params["ln_enc"], cfg.norm_eps)
 
 
-def _dec_block(cfg, p_l, x, positions, enc_kv, self_cache=None, cache_len=None):
+def _dec_block(cfg, p_l, x, positions, enc_kvs, self_cache=None, cache_len=None):
+    """One decoder layer; ``enc_kvs``: its cross attention's (K, V), one
+    pair a local shard (``attention.cross_kv_shards``)."""
     h = rms_norm(x, p_l["ln1"], cfg.norm_eps)
     if self_cache is None:
         a, kv = attn.gqa_attend(cfg, p_l["self_attn"], h, positions, causal=True)
@@ -92,38 +115,29 @@ def _dec_block(cfg, p_l, x, positions, enc_kv, self_cache=None, cache_len=None):
                                 cache_len=cache_len)
     x = x + a
     h = rms_norm(x, p_l["ln_x"], cfg.norm_eps)
-    ca, _ = attn.gqa_attend(cfg, p_l["cross_attn"], h, positions, causal=False, kv=enc_kv)
-    x = x + ca
+    x = x + attn.gqa_cross(cfg, p_l["cross_attn"], h, positions, enc_kvs)
     x = x + _ffn(p_l, rms_norm(x, p_l["ln2"], cfg.norm_eps))
     return x, kv
 
 
-def cross_kv(cfg: ModelConfig, params, enc_out, dec_layers=None):
+def cross_kv(cfg: ModelConfig, params, enc_out):
     """Every decoder layer's cross-attention (K, V) of the encoder output,
-    stacked (L, B, S_enc, KV, hd); K roped at the encoder's positions.
-    ``dec_layers``: the decoder's per-layer trees, where the caller has
-    them (``unstack(params["decoder"])``)."""
+    stacked (L, B, S_enc, KV, hd); K roped at the encoder's positions."""
     positions = _positions(enc_out)
-    ks, vs = [], []
-    for p_l in dec_layers if dec_layers is not None else unstack(params["decoder"]):
-        p = p_l["cross_attn"]
-        k = attn._heads(enc_out, p["wk"])
-        v = attn._heads(enc_out, p["wv"])
-        if cfg.qkv_bias:
-            k = k + p["bk"]
-            v = v + p["bv"]
-        if cfg.qk_norm:
-            k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-        ks.append(rope(k, positions, cfg.rope_theta))
-        vs.append(v)
-    return torch.stack(ks), torch.stack(vs)
+    kvs = [attn.cross_kv_shards(cfg, p_l["cross_attn"], [enc_out], positions)[0]
+           for p_l in unstack(params["decoder"])]
+    return tuple(torch.stack(t) for t in zip(*kvs))
 
 
 def decode_train(cfg: ModelConfig, params, tokens, enc_out):
-    x = params["embed"][tokens.long()]
+    """The decoder over ``tokens`` reading ``enc_out``.  ``enc_out`` enters
+    the context that splits "heads" once, and each layer's cross attention
+    makes and reads only the local shards' kv heads' K/V."""
+    x = embed_tokens(cfg, params, tokens)
     positions = _positions(x)
     dec = unstack(params["decoder"])
-    enc_kvs = unstack(cross_kv(cfg, params, enc_out, dec))
+    source, enc_pos = shard_ctx.split("heads").enter(enc_out), _positions(enc_out)
+    enc_kvs = [attn.cross_kv_shards(cfg, p_l["cross_attn"], source, enc_pos) for p_l in dec]
     body = remat(cfg, lambda xx, p_l, ekv: _dec_block(cfg, p_l, xx, positions, ekv)[0])
     for p_l, ekv in zip(dec, enc_kvs):
         x = body(x, p_l, ekv)
@@ -162,7 +176,7 @@ def decode_step(cfg: ModelConfig, params, state: EncDecState, tokens):
     caches = []
     for i in range(cfg.n_layers):
         x, nc = _dec_block(cfg, layer(params["decoder"], i), x, positions,
-                           layer(state.enc_kvs, i), self_cache=layer(state.self_cache, i),
+                           [layer(state.enc_kvs, i)], self_cache=layer(state.self_cache, i),
                            cache_len=state.cache_len)
         caches.append(nc)
     h = rms_norm(x, params["ln_f"], cfg.norm_eps)

@@ -12,14 +12,31 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels.util import resolve_device
-from repro_torch.models import ssm
+from repro_torch.models import shard_ctx, ssm
 from repro_torch.models.common import ModelConfig, remat, rms_norm
-from repro_torch.models.transformer import layer, lm_loss, unembed, unstack
+from repro_torch.models.transformer import embed_tokens, layer, lm_loss, unembed, unstack
+
+
+def tp_groups(cfg: ModelConfig) -> tuple[list[shard_ctx.Group], tuple]:
+    """The groups the tensor-parallel step may split along ``model``
+    (``shard_ctx.plan_groups``), and the leaves that always run whole: the
+    time-mix heads with ``w_g``'s columns (the mixes and ``decay_lora_a``
+    partial), the channel-mix's columns, the vocab; ``w_ffn_r``, whose
+    columns are the residual's channels, whole (gathering the leaf moves
+    fewer bytes than gathering its output's columns)."""
+    b = lambda k: ("blocks", k)  # noqa: E731
+    time_mix = {b(k): 2 for k in ("w_r", "w_k", "w_v", "w_g", "decay_lora_b")}
+    time_mix.update({b(k): 1 for k in ("w_o", "decay_base", "bonus", "gn")})
+    return ([shard_ctx.Group("heads", time_mix,
+                             partial=tuple(b(k) for k in ssm.TIME_MIX_COPIES)),
+             shard_ctx.Group("mlp", {b("w_ffn_k"): 2, b("w_ffn_v"): 1}),
+             shard_ctx.Group("vocab", {("embed",): 0, ("unembed",): 1})],
+            (b("w_ffn_r"),))
 
 
 def forward(cfg: ModelConfig, params, tokens):
     """Returns (hidden, 0.0, None): no aux loss, no cache."""
-    x = params["embed"][tokens.long()]
+    x = embed_tokens(cfg, params, tokens)
     body = remat(cfg, lambda xx, p_l: ssm.rwkv6_block(cfg, p_l, xx)[0])
     for p_l in unstack(params["blocks"]):
         x = body(x, p_l)

@@ -11,7 +11,7 @@ dispatch stays global); the dry-run and the expert-parallel checks do.
 
 **Tensor parallelism** (Megatron's column/row split; what XLA's
 partitioner does with the reference's ``model`` axis).  The mesh train
-step of the decoder family (``train/step.py``) runs the model under
+step (``train/step.py``) runs the model under
 :func:`tensor_parallel`, a :class:`TensorParallel` that says which
 ``model`` shards the computation covers (``Mesh.local("model")`` of them
 from ``Mesh.start("model")``) and which product groups the parameters'
@@ -31,6 +31,20 @@ that is replicated along ``model`` but feeds split compute (the
 MLA's latent projections) one copy a local shard on a dimension after the
 layer dimension (:meth:`TensorParallel.copies`), so that each shard's
 gradient stays its own until the step sums them in shard order.
+
+The other families (``rwkv6``, ``zamba2``, ``encdec``) describe their
+split products as groups (:class:`Group`), which :func:`plan_groups` resolves
+against the specs: ``"heads"`` (RWKV6's time-mix heads with ``w_g``'s
+columns; the attention of the shared block, the encoder and the decoder,
+cross attention too), ``"kv_heads"``, ``"ssm_heads"`` (Mamba2's heads,
+their ``gn`` and ``w_out`` channels), ``"mlp"`` (RWKV6's channel-mix,
+the SwiGLU MLPs) and ``"vocab"``.  A group splits only where every leaf
+of it splits along ``model`` as its computation reads it; otherwise its
+split leaves are gathered whole along ``model`` and it runs whole on
+every process, its gradient complete there.  A leaf a split group reads
+whole although its spec splits it contiguously (Mamba2's ``w_in`` and
+``conv_w``, whose column blocks are not a shard's heads) is gathered,
+then handed over as a partial leaf.
 
 A split region starts at :meth:`TensorParallel.enter` (identity forward;
 backward, the ordered sum of the shards' input gradients over ``model``)
@@ -115,7 +129,7 @@ def constrain(x, dims: Iterable, *, divisible: bool = True):
 # ---------------------------------------------------------------------------
 # Tensor parallelism
 # ---------------------------------------------------------------------------
-GROUPS = ("heads", "kv_heads", "mlp", "vocab", "expert", "expert_mlp")
+GROUPS = ("heads", "kv_heads", "ssm_heads", "mlp", "vocab", "expert", "expert_mlp")
 
 
 @contextlib.contextmanager
@@ -237,3 +251,73 @@ def tensor_parallel(tp: TensorParallel):
 def split(group: str) -> TensorParallel:
     """The active context when it splits ``group``, else :data:`WHOLE`."""
     return _TP if _TP is not None and group in _TP.split else WHOLE
+
+
+# ---------------------------------------------------------------------------
+# Planning the other families' split
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Group:
+    """Leaves that one computation reads together along ``model``.
+
+    ``dims``: each leaf whose block the computation reads, with the
+    dimension its spec must split along ``model``; ``partial``: leaves
+    replicated along ``model`` that feed the split computation (one copy a
+    local shard); ``gathered``: leaves the split computation reads whole
+    (gathered along ``model``, then partial); ``within``: the group whose
+    split computation this one's leaves feed (the kv heads of the query
+    heads): it splits only with that group, and where that group splits
+    without it its leaves are gathered, then partial."""
+
+    name: str
+    dims: dict
+    partial: tuple = ()
+    gathered: tuple = ()
+    within: str | None = None
+
+
+def model_dims(spec) -> list[int]:
+    """The dimensions of ``spec`` that ``model`` splits."""
+    return [i for i, e in enumerate(spec)
+            if e == "model" or (isinstance(e, tuple) and "model" in e)]
+
+
+def plan_groups(groups: Iterable[Group], specs: dict, whole: Iterable = ()
+                ) -> tuple[frozenset, frozenset, frozenset]:
+    """``(split groups, partial leaves, leaves gathered whole)`` of
+    ``groups`` under ``specs`` (``{path: spec}``).  ``whole``: leaves whose
+    computation always runs whole (gathered where their spec splits
+    them).  Raises ``ValueError`` naming a leaf that ``model`` splits and
+    no group reads."""
+    groups = list(groups)
+    split_at = {path: dim for g in groups for path, dim in g.dims.items()}
+    read = set(split_at) | {p for g in groups for p in g.gathered} | set(whole)
+    for path, spec in specs.items():
+        if model_dims(spec) and path not in read:
+            raise ValueError(f"the tensor-parallel step cannot serve {'/'.join(path)} under "
+                             f"its spec {spec}")
+
+    def usable(g: Group) -> bool:
+        return all(model_dims(specs[p]) == [d] and specs[p][d] == "model"
+                   for p, d in g.dims.items())
+
+    def splits(name: str, outer) -> bool:       # every group of the name is usable
+        of = [g for g in groups if g.name == name]
+        return all(usable(g) and (g.within is None or g.within in outer) for g in of)
+
+    names = {g.name for g in groups if g.within is None}
+    names = {n for n in names if splits(n, ())}
+    names |= {g.name for g in groups if g.within is not None and splits(g.name, names)}
+    partial, gathered = set(), set()
+    for g in groups:
+        if g.name in names:
+            partial.update(g.partial + g.gathered)
+            gathered.update(g.gathered)
+        elif g.within in names:            # its leaves feed the other group's split whole
+            partial.update(tuple(g.dims) + g.partial + g.gathered)
+            gathered.update(tuple(g.dims) + g.gathered)
+        else:
+            gathered.update(tuple(g.dims) + g.gathered)
+    gathered.update(whole)
+    return (frozenset(names), frozenset(partial),
+            frozenset(p for p in gathered if model_dims(specs[p])))

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import shard_ctx
 from repro_torch.models.attention import _heads, _merge_heads
 from repro_torch.models.common import ModelConfig, rms_norm
 
@@ -183,47 +184,76 @@ def _token_shift(x: torch.Tensor, prev: torch.Tensor | None = None) -> torch.Ten
     return torch.cat([prev, x[:, :-1]], dim=1)
 
 
+_TIME_MIX_SPLIT = (("w_r", -2), ("w_k", -2), ("w_v", -2), ("w_g", -1), ("w_o", -3),
+                   ("decay_base", -2), ("decay_lora_b", -2), ("bonus", -2), ("gn", -2))
+TIME_MIX_COPIES = ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g", "decay_lora_a")
+
+
 def rwkv6_block(cfg: ModelConfig, p, x, *, state=None):
     """One RWKV6 layer (time-mix + channel-mix).
 
     ``state`` is ``(S, shift_a, shift_b)``: the wkv matrix state plus the two
     token-shift carries (time-mix and channel-mix).  Returns (y, new_state).
+
+    Under a tensor-parallel context that splits "heads" each local shard
+    runs the time-mix of its heads (``w_r``/``w_k``/``w_v`` and the decay
+    and bonus blocks, the chunked scan and the per-head group norm; its
+    block of ``w_g``'s columns, which are its heads' channels) from the
+    normed input, with its copies of the mixes and the decay LoRA's
+    ``decay_lora_a``; ``w_o`` is row-parallel.  Under one that splits
+    "mlp" the channel-mix's ``w_ffn_k`` is column- and ``w_ffn_v``
+    row-parallel; the receptance gate ``w_ffn_r`` (its columns are the
+    residual's channels) runs whole.  The wkv state returned is the last
+    local shard's.
     """
     B, S, d = x.shape
     H, hd = rwkv6_heads(cfg)
     wkv_state, shift_a, shift_b = state if state is not None else (None, None, None)
 
     xa = rms_norm(x, p["ln1"], cfg.norm_eps)
-    xs = _token_shift(xa, shift_a)
+    tp = shard_ctx.split("heads")
+    hs = H // tp.size
+    per = {k: tp.shards(p[k], dim) for k, dim in _TIME_MIX_SPLIT}
+    per.update({k: tp.copies(p[k]) for k in TIME_MIX_COPIES})
+    parts = []
+    for j, xaj in enumerate(tp.enter(xa)):
+        pj = {k: v[j] for k, v in per.items()}
+        xs = _token_shift(xaj, shift_a)
 
-    def mix(mu):
-        return xa + (xs - xa) * torch.sigmoid(mu)
+        def mix(mu):
+            return xaj + (xs - xaj) * torch.sigmoid(mu)
 
-    r = _heads(mix(p["mu_r"]), p["w_r"])
-    k = _heads(mix(p["mu_k"]), p["w_k"])
-    v = _heads(mix(p["mu_v"]), p["w_v"])
-    g = F.silu((mix(p["mu_g"]) @ p["w_g"]).float()).to(x.dtype)
+        r = _heads(mix(pj["mu_r"]), pj["w_r"])
+        k = _heads(mix(pj["mu_k"]), pj["w_k"])
+        v = _heads(mix(pj["mu_v"]), pj["w_v"])
+        g = F.silu((mix(pj["mu_g"]) @ pj["w_g"]).float()).to(x.dtype)
 
-    lora = mix(p["mu_w"]) @ p["decay_lora_a"]
-    lora = _heads(torch.tanh(lora.float()).to(x.dtype), p["decay_lora_b"])
-    # log w_t = -exp(·) < 0 ⇒ w ∈ (0,1)
-    log_w = -torch.exp(torch.clamp(p["decay_base"].float() + lora.float(), -8.0, 4.0))
+        lora = mix(pj["mu_w"]) @ pj["decay_lora_a"]
+        lora = _heads(torch.tanh(lora.float()).to(x.dtype), pj["decay_lora_b"])
+        # log w_t = -exp(·) < 0 ⇒ w ∈ (0,1)
+        log_w = -torch.exp(torch.clamp(pj["decay_base"].float() + lora.float(), -8.0, 4.0))
 
-    o, new_wkv = chunked_linear_attention(
-        r, k, v, log_w, bonus=p["bonus"].float(), inclusive=False, chunk=cfg.ssm_chunk,
-        initial_state=wkv_state)
-    o32 = o.float()
-    o32 = o32 * torch.rsqrt((o32 * o32).mean(dim=-1, keepdim=True) + cfg.norm_eps)
-    o = (o32 * p["gn"].float()).to(x.dtype)
-    o = o.reshape(B, S, d) * g
-    x = x + _merge_heads(o.reshape(B, S, H, hd), p["w_o"])
+        o, new_wkv = chunked_linear_attention(
+            r, k, v, log_w, bonus=pj["bonus"].float(), inclusive=False, chunk=cfg.ssm_chunk,
+            initial_state=wkv_state)
+        o32 = o.float()
+        o32 = o32 * torch.rsqrt((o32 * o32).mean(dim=-1, keepdim=True) + cfg.norm_eps)
+        o = (o32 * pj["gn"].float()).to(x.dtype)
+        o = o.reshape(B, S, hs * hd) * g
+        parts.append(_merge_heads(o.reshape(B, S, hs, hd), pj["w_o"]))
+    x = x + tp.leave(parts)
     new_shift_a = xa[:, -1:]
 
     xb = rms_norm(x, p["ln2"], cfg.norm_eps)
     xbs = _token_shift(xb, shift_b)
-    kf = (xb + (xbs - xb) * torch.sigmoid(p["mu_ffn_k"])) @ p["w_ffn_k"]
-    kf = torch.square(torch.relu(kf.float())).to(x.dtype)
-    ffn = kf @ p["w_ffn_v"]
+    kin = xb + (xbs - xb) * torch.sigmoid(p["mu_ffn_k"])
+    tp = shard_ctx.split("mlp")
+    parts = []
+    for kj, wk, wv in zip(tp.enter(kin), tp.shards(p["w_ffn_k"], -1),
+                          tp.shards(p["w_ffn_v"], -2)):
+        kf = torch.square(torch.relu((kj @ wk).float())).to(x.dtype)
+        parts.append(kf @ wv)
+    ffn = tp.leave(parts)
     rg = torch.sigmoid((xbs @ p["w_ffn_r"]).float()).to(x.dtype)
     x = x + ffn * rg
     return x, (new_wkv, new_shift_a, xb[:, -1:])
@@ -257,43 +287,76 @@ def build_mamba2_params(cfg: ModelConfig, b, d_inner: int, prefix_layers=True):
 
 def mamba2_block(cfg: ModelConfig, p, x, d_inner: int, *, state=None, conv_state=None):
     """Mamba2/SSD block (simplified single-group).  Returns (y, (ssm, conv)):
-    the state (B, H, N, 64) float32 and the last 3 conv inputs (B, 3, C)."""
+    the state (B, H, N, 64) float32 and the last 3 conv inputs (B, 3, C).
+
+    Under a tensor-parallel context that splits "ssm_heads" each local
+    shard runs its heads from the normed input: their ``z`` and ``u``
+    columns of ``w_in`` and ``u`` channels of ``conv_w`` (both whole
+    leaves: their contiguous blocks are not a shard's heads), the shared
+    ``b``/``c`` channels with its copy of ``w_bc``, and its blocks of
+    ``w_dt``, ``dt_bias``, ``a_log``, ``d_skip`` and ``gn``.  The gated
+    norm's mean of squares over all of ``d_inner`` is the shards' sums of
+    squares summed over ``model`` (entered again: each shard's share of
+    its gradient is summed back); ``w_out`` is row-parallel.  The states
+    returned are the last local shard's."""
     B, S, d = x.shape
     N = cfg.ssm_state
     P = MAMBA_HEAD
     H = d_inner // P
+    tp = shard_ctx.split("ssm_heads")
+    hs = H // tp.size
+    n = hs * P                                         # a shard's channels
 
     xi = rms_norm(x, p["ln"], cfg.norm_eps)
-    z, u = (xi @ p["w_in"]).split(d_inner, dim=-1)   # gate, value (B,S,d_inner)
-    bc = xi @ p["w_bc"]                                # (B,S,2N)
+    per = {k: tp.shards(p[k], -1) for k in ("w_dt", "dt_bias", "a_log", "d_skip", "gn")}
+    per.update({"w_out": tp.shards(p["w_out"], -2),
+                **{k: tp.copies(p[k]) for k in ("w_in", "w_bc", "conv_w")}})
+    heads = []
+    for j, xij in enumerate(tp.enter(xi)):
+        pj = {k: v[j] for k, v in per.items()}
+        w_in, w = pj["w_in"], pj["conv_w"]
+        if tp.mesh is not None:        # the shard's z, u columns; its u and the b, c channels
+            lo = tp.shard(j) * n
+            w_in = torch.cat([w_in.narrow(-1, lo, n), w_in.narrow(-1, d_inner + lo, n)], -1)
+            w = torch.cat([w.narrow(-1, lo, n), w[..., d_inner:]], -1)
+        z, u = (xij @ w_in).split(n, dim=-1)           # gate, value (B,S,n)
+        bc = xij @ pj["w_bc"]                          # (B,S,2N)
 
-    # depthwise causal conv (width 4) over concat([u, bc])
-    cu = torch.cat([u, bc], dim=-1)
-    if conv_state is None:
-        conv_in = F.pad(cu, (0, 0, 3, 0))
-    else:
-        conv_in = torch.cat([conv_state.to(cu.dtype), cu], dim=1)
-    w = p["conv_w"]                                    # (4, channels)
-    conv = sum(conv_in[:, i : i + S] * w[i] for i in range(4))
-    conv = F.silu(conv.float()).to(x.dtype)
-    u_c, bc_c = conv[..., :d_inner], conv[..., d_inner:]
-    b_in, c_in = bc_c.split(N, dim=-1)                 # (B,S,N) each
-    new_conv_state = conv_in[:, S : S + 3] if conv_state is not None else cu[:, -3:]
+        # depthwise causal conv (width 4) over concat([u, bc])
+        cu = torch.cat([u, bc], dim=-1)
+        if conv_state is None:
+            conv_in = F.pad(cu, (0, 0, 3, 0))
+        else:
+            conv_in = torch.cat([conv_state.to(cu.dtype), cu], dim=1)
+        conv = sum(conv_in[:, i : i + S] * w[i] for i in range(4))
+        conv = F.silu(conv.float()).to(x.dtype)
+        u_c, bc_c = conv[..., :n], conv[..., n:]
+        b_in, c_in = bc_c.split(N, dim=-1)             # (B,S,N) each
+        new_conv_state = conv_in[:, S : S + 3] if conv_state is not None else cu[:, -3:]
 
-    dt = F.softplus((xi @ p["w_dt"]).float() + p["dt_bias"].float())   # (B,S,H)
-    a = -torch.exp(p["a_log"].float())                 # (H,) negative
-    log_decay = dt * a                                 # (B,S,H) = log w_t
+        dt = F.softplus((xij @ pj["w_dt"]).float() + pj["dt_bias"].float())   # (B,S,hs)
+        a = -torch.exp(pj["a_log"].float())            # (hs,) negative
+        log_decay = dt * a                             # (B,S,hs) = log w_t
 
-    uh = u_c.reshape(B, S, H, P).float() * dt[..., None]
-    q = c_in[:, :, None, :].expand(B, S, H, N)
-    k = b_in[:, :, None, :].expand(B, S, H, N)
-    lw = log_decay[..., None].expand(B, S, H, N)
+        uh = u_c.reshape(B, S, hs, P).float() * dt[..., None]
+        q = c_in[:, :, None, :].expand(B, S, hs, N)
+        k = b_in[:, :, None, :].expand(B, S, hs, N)
+        lw = log_decay[..., None].expand(B, S, hs, N)
 
-    o, new_state = chunked_linear_attention(
-        q, k, uh.to(x.dtype), lw, inclusive=True, chunk=cfg.ssm_chunk, initial_state=state)
-    o = o.float() + p["d_skip"].float()[:, None] * u_c.reshape(B, S, H, P).float()
-    o = o.reshape(B, S, d_inner)
-    o = o * torch.rsqrt((o * o).mean(dim=-1, keepdim=True) + cfg.norm_eps)
-    o = (o * p["gn"].float()).to(x.dtype)
-    o = o * F.silu(z.float()).to(x.dtype)
-    return x + o @ p["w_out"], (new_state, new_conv_state)
+        o, new_state = chunked_linear_attention(
+            q, k, uh.to(x.dtype), lw, inclusive=True, chunk=cfg.ssm_chunk, initial_state=state)
+        o = o.float() + pj["d_skip"].float()[:, None] * u_c.reshape(B, S, hs, P).float()
+        heads.append((o.reshape(B, S, n), z, pj))
+    if tp.mesh is None:
+        ((o, z, pj),) = heads
+        means = [(o * o).mean(dim=-1, keepdim=True)]
+    else:                          # the mean over every shard's channels
+        sq = tp.leave([(o * o).sum(dim=-1, keepdim=True) for o, _, _ in heads])
+        means = [m / d_inner for m in tp.enter(sq)]
+    parts = []
+    for (o, z, pj), m in zip(heads, means):
+        o = o * torch.rsqrt(m + cfg.norm_eps)
+        o = (o * pj["gn"].float()).to(x.dtype)
+        o = o * F.silu(z.float()).to(x.dtype)
+        parts.append(o @ pj["w_out"])
+    return x + tp.leave(parts), (new_state, new_conv_state)

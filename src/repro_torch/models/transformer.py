@@ -93,7 +93,26 @@ def build_params(cfg: ModelConfig, b):
 # ---------------------------------------------------------------------------
 def _stacks(cfg: ModelConfig) -> tuple[str, ...]:
     """The stacked block trees of ``cfg``'s parameters."""
-    return ("blocks", "dense_blocks") if interleaved(cfg) else ("blocks",)
+    if cfg.family == "decoder":
+        return ("blocks", "dense_blocks") if interleaved(cfg) else ("blocks",)
+    return {"rwkv6": ("blocks",), "zamba2": ("mamba",), "encdec": ("encoder", "decoder")}[
+        cfg.family]
+
+
+def tp_copy_dim(cfg: ModelConfig, path: tuple) -> int:
+    """Where the tensor-parallel step puts a partial leaf's copies, one a
+    local ``model`` shard: after its layer dimension (a stacked leaf), else
+    first (zamba2's shared block)."""
+    return 1 if path[0] in _stacks(cfg) else 0
+
+
+def _family_plan(cfg: ModelConfig, specs) -> tuple[frozenset, frozenset, frozenset]:
+    """``shard_ctx.plan_groups`` of rwkv6's, zamba2's or encdec's groups."""
+    from repro_torch.models import encdec, rwkv_model, zamba
+
+    groups, whole = {"rwkv6": rwkv_model.tp_groups, "zamba2": zamba.tp_groups,
+                     "encdec": encdec.tp_groups}[cfg.family](cfg)
+    return shard_ctx.plan_groups(groups, dict(tree_leaves(specs)), whole)
 
 
 def _split_dims(cfg: ModelConfig, by_columns: bool = False) -> dict[tuple, tuple[str, int]]:
@@ -123,13 +142,22 @@ def _split_dims(cfg: ModelConfig, by_columns: bool = False) -> dict[tuple, tuple
 
 def tp_plan(cfg: ModelConfig, specs, mesh) -> tuple[frozenset, frozenset] | None:
     """How the mesh step splits ``cfg``'s products over ``mesh``'s ``model``
-    axis: ``None`` unless ``cfg`` is a decoder and ``model`` has several
-    shards; else ``(split groups, partial leaves)`` under the parameters'
-    ``specs``: the product groups whose leaves the specs split along
-    ``model``, and the paths of the leaves replicated along ``model`` that
-    feed split compute (their shards' gradients are partial: the
-    attention's norm gammas, ``wk``/``wv`` and their biases where the kv
-    heads are not split, MLA's latent projections).  An MoE config's
+    axis: ``None`` unless ``model`` has several shards; else ``(split
+    groups, partial leaves)`` under the parameters' ``specs``: the product
+    groups whose leaves the specs split along ``model``, and the paths of
+    the leaves that feed split compute whole (their shards' gradients are
+    partial: the attention's norm gammas, ``wk``/``wv`` and their biases
+    where the kv heads are not split, MLA's latent projections; RWKV6's
+    mixes and ``decay_lora_a``; Mamba2's ``w_bc``, ``w_in`` and
+    ``conv_w``).  Every one of the ten archs has a plan: the dense
+    decoders (qwen1.5-4b, qwen3-32b, starcoder2-15b, chameleon-34b,
+    minicpm3-4b) and the MoE archs (qwen3-moe-235b-a22b,
+    llama4-maverick-400b-a17b) as below; rwkv6-1.6b, zamba2-2.7b and
+    seamless-m4t-medium by their groups (``rwkv_model``, ``zamba``,
+    ``encdec``'s ``tp_groups``; ``shard_ctx.plan_groups``), a group split
+    only where every leaf of it splits as its computation reads it, else
+    run whole with its split leaves gathered (:func:`tp_gathered`).  An
+    MoE config's
     experts split along their expert dimension (group ``"expert"``: ``E /
     model`` experts a shard; its router, split with them, is gathered whole,
     :func:`tp_gathered`), or where ``E`` does not divide ``model`` and the
@@ -137,8 +165,10 @@ def tp_plan(cfg: ModelConfig, specs, mesh) -> tuple[frozenset, frozenset] | None
     ``"expert_mlp"``), as XLA's partitioner serves that spec; experts split
     along neither are a spec it cannot serve.  Raises ``ValueError``
     naming a leaf whose spec the tensor-parallel path cannot serve."""
-    if cfg.family != "decoder" or "model" not in mesh.axes or mesh.size("model") == 1:
+    if "model" not in mesh.axes or mesh.size("model") == 1:
         return None
+    if cfg.family != "decoder":
+        return _family_plan(cfg, specs)[:2]
     by_columns = False
     if cfg.moe:
         ex = specs["blocks"]["moe"]["experts"]
@@ -176,11 +206,18 @@ def tp_plan(cfg: ModelConfig, specs, mesh) -> tuple[frozenset, frozenset] | None
     return split, frozenset((stack, "attn", k) for stack in _stacks(cfg) for k in names)
 
 
-def tp_gathered(cfg: ModelConfig) -> frozenset:
-    """The leaves the tensor-parallel step gathers along ``model`` as well
-    (their compute runs whole on every shard, so each process's gradient
-    of them is complete): an MoE config's router, whose softmax and top-k
-    need every expert's logit."""
+def tp_gathered(cfg: ModelConfig, specs=None) -> frozenset:
+    """The leaves the tensor-parallel step gathers along ``model`` as well:
+    an MoE config's router, whose softmax and top-k need every expert's
+    logit; for rwkv6, zamba2 and encdec (under ``specs``) the split leaves
+    of each group that runs whole, the leaves that always run whole
+    (RWKV6's ``w_ffn_r``, encdec's ``frame_proj``) and Mamba2's ``w_in``
+    and ``conv_w``.  Their compute runs whole on every shard, so each
+    process's gradient of them is complete, but for those the plan also
+    lists as partial (Mamba2's two: each shard reads its heads' columns),
+    which are summed over ``model``."""
+    if cfg.family != "decoder":
+        return _family_plan(cfg, specs)[2]
     return frozenset({("blocks", "moe", "router")}) if cfg.moe else frozenset()
 
 

@@ -15,9 +15,11 @@ import torch
 
 from repro_torch.kernels.util import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import ssm
+from repro_torch.models import shard_ctx, ssm
 from repro_torch.models.common import ModelConfig, remat, rms_norm, swiglu
-from repro_torch.models.transformer import _stack, layer, lm_loss, unembed, unstack
+from repro_torch.models.transformer import (
+    _stack, embed_tokens, layer, lm_loss, unembed, unstack,
+)
 
 
 def _d_inner(cfg: ModelConfig) -> int:
@@ -49,6 +51,24 @@ def build_params(cfg: ModelConfig, b):
     }
 
 
+def tp_groups(cfg: ModelConfig) -> tuple[list[shard_ctx.Group], tuple]:
+    """The groups the tensor-parallel step may split along ``model``
+    (``shard_ctx.plan_groups``): the Mamba2 heads (``w_in`` and
+    ``conv_w`` gathered, then partial; ``w_bc`` partial), the shared
+    block's attention heads and MLP columns (its leaves have no layer
+    dimension), the vocab."""
+    m = lambda k: ("mamba", k)  # noqa: E731
+    mlp = ("shared_attn", "mlp")
+    ssm_heads = {m(k): 1 for k in ("dt_bias", "a_log", "d_skip", "gn", "w_out")}
+    ssm_heads[m("w_dt")] = 2
+    return ([shard_ctx.Group("ssm_heads", ssm_heads, partial=(m("w_bc"),),
+                             gathered=(m("w_in"), m("conv_w"))),
+             *attn.tp_groups(cfg, ("shared_attn", "attn"), stacked=False),
+             shard_ctx.Group("mlp", {mlp + ("w_gate",): 1, mlp + ("w_up",): 1,
+                                     mlp + ("w_down",): 0}),
+             shard_ctx.Group("vocab", {("embed",): 0, ("unembed",): 1})], ())
+
+
 def _shared_block(cfg, p, x, positions, cache=None, cache_len=None):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if cache is None:
@@ -71,7 +91,7 @@ def forward(cfg: ModelConfig, params, tokens, *, collect_cache=False):
     """Training/prefill forward.  Returns (hidden, 0.0, attn_kv_caches|None),
     the caches a (k, v) pair of (sites, B, S, KV, hd)."""
     di = _d_inner(cfg)
-    x = params["embed"][tokens.long()]
+    x = embed_tokens(cfg, params, tokens)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     sites, per, rem = _groups(cfg)

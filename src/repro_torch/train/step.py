@@ -32,30 +32,40 @@ semantics), up to the order of float sums:
 * the global norm is summed over the leaves' shard cells in a fixed order,
   and AdamW updates the blocks.
 
-**Along ``model``**, the decoder family (qwen1.5-4b, qwen3-32b,
-starcoder2-15b, chameleon-34b, minicpm3-4b, and the MoE archs qwen3-moe
-and llama4-maverick) splits its products, as XLA's partitioner splits the
-reference's (Megatron's tensor parallelism, ``models/shard_ctx.py``): on
-a mesh whose ``model`` axis has several shards, each process computes its
-``model`` shards' heads, MLP columns, vocab rows and experts (or, where
-the experts do not divide ``model``, every expert's columns) — the
-groups its leaves' specs split (``transformer.tp_plan``; a leaf whose
-spec it cannot serve raises) — with its blocks gathered along the data
-axes only.  The MoE router is gathered along ``model`` too
-(``transformer.tp_gathered``): the routing runs whole, once a process,
-so its gradient is complete on each process, which keeps its block.  The
-split regions' partials are summed over ``model`` in shard order
-(``collectives.ordered_sum``); a process holding several ``model``
-shards runs them one after another in each region, each on its own
-tensors, so 1, 2 or 4 processes still give the same bits.  A leaf
-replicated along ``model`` that feeds split compute (attention's norm
-gammas, ``wk``/``wv`` where the kv heads do not split, MLA's latent
-projections) is handed to the model with one copy a local shard, and its
-shards' partial gradients are summed over ``model`` before the data axes.
-A checkpointed block's recompute runs whole there (no early stop), so
-its sums run as often on every process.  rwkv6, zamba2 and encdec gather
-the whole parameters: along ``model`` they split storage and not compute
-(ROADMAP).
+**Along ``model``** every arch splits its products, as XLA's partitioner
+splits the reference's (Megatron's tensor parallelism,
+``models/shard_ctx.py``): on a mesh whose ``model`` axis has several
+shards, each process computes its ``model`` shards' part of the groups its
+leaves' specs split (``transformer.tp_plan``), with its blocks gathered
+along the data axes only.  The dense decoders (qwen1.5-4b, qwen3-32b,
+starcoder2-15b, chameleon-34b, minicpm3-4b) split their heads, MLP columns
+and vocab rows; the MoE archs (qwen3-moe, llama4-maverick) their experts
+too (or, where the experts do not divide ``model``, every expert's
+columns), the router gathered whole; rwkv6 its time-mix heads (with
+``w_g``'s columns), channel-mix columns and vocab rows; zamba2 its Mamba2
+heads, the shared block's attention heads and MLP columns and its vocab
+rows; encdec (seamless-m4t) its encoder's, decoder's and cross
+attention's heads, MLP columns and vocab rows.  A group splits only where
+every leaf of it splits along ``model`` as its computation reads it;
+otherwise its split leaves are gathered whole along ``model``
+(``transformer.tp_gathered``) and it runs whole on every process, its
+gradient complete there (reduced rwkv6's 4 heads on 16×16, reduced
+zamba2's 2 Mamba heads on 4 or 16 shards).  A decoder leaf whose spec the
+path cannot serve, and a leaf no group reads, raise.  Leaves that always
+run whole (the MoE router, RWKV6's ``w_ffn_r``, encdec's ``frame_proj``)
+are gathered the same way.  The split regions' partials are summed over
+``model`` in shard order (``collectives.ordered_sum``); a process holding
+several ``model`` shards runs them one after another in each region, each
+on its own tensors, so 1, 2 or 4 processes still give the same bits.  A
+leaf that feeds split compute whole (attention's norm gammas, ``wk``/
+``wv`` where the kv heads do not split, MLA's latent projections, RWKV6's
+mixes and ``decay_lora_a``, Mamba2's ``w_bc``, and ``w_in`` and ``conv_w``,
+gathered first: their contiguous blocks are not a shard's heads) is handed
+to the model with one copy a local shard (after its layer dimension;
+first for the shared block's unstacked leaves), and its shards' partial
+gradients are summed over ``model`` before the data axes.  A checkpointed
+block's recompute runs whole there (no early stop), so its sums run as
+often on every process.
 
 **Threads.**  An MoE config's data shards run in threads of their own
 (:class:`_Exchange`), in step at each MoE layer's count exchange, which
@@ -326,16 +336,18 @@ class _MeshStep:
         # device; None records nothing
         self.timing = None
         self._timing_lock = threading.Lock()
-        # the tensor-parallel context (the decoder family on a mesh whose
-        # model axis has several shards), else None
+        # the tensor-parallel context (on a mesh whose model axis has several
+        # shards), else None
         from repro_torch.distributed.collectives import spans
         from repro_torch.models import shard_ctx, transformer
 
         plan = transformer.tp_plan(self.cfg, self.specs, mesh)
-        self.tp, self.partial, self.whole = None, frozenset(), frozenset()
+        self.tp, self.partial, self.whole, self.copy_dim = None, frozenset(), frozenset(), {}
         if plan is not None:
             self.tp = shard_ctx.TensorParallel(mesh, plan[0], self._timed)
-            self.partial, self.whole = plan[1], transformer.tp_gathered(self.cfg)
+            self.partial, self.whole = plan[1], transformer.tp_gathered(self.cfg, self.specs)
+            self.copy_dim = {path: transformer.tp_copy_dim(self.cfg, path)
+                             for path in self.partial}
             # the MoE's data shards run in threads (_Exchange), which must not
             # issue a model-axis collective across processes
             if self.cfg.moe and len(self.shards) > 1 and spans(mesh, "model"):
@@ -386,11 +398,14 @@ class _MeshStep:
     def _live(self, path, p, grads: bool) -> torch.Tensor:
         """A leaf as the model takes it: detached, requiring grad when
         ``grads``; a partial leaf (``transformer.tp_plan``) with one copy a
-        local ``model`` shard after its layer dimension, so that each
-        shard's gradient stays its own."""
+        local ``model`` shard after its layer dimension (first where it has
+        none, ``transformer.tp_copy_dim``), so that each shard's gradient
+        stays its own."""
         p = p.detach()
         if path in self.partial:
-            p = p.unsqueeze(1).expand((p.shape[0], self.tp.local) + tuple(p.shape[1:]))
+            c = self.copy_dim[path]
+            p = p.unsqueeze(c).expand(tuple(p.shape[:c]) + (self.tp.local,)
+                                      + tuple(p.shape[c:]))
         return p.requires_grad_(grads)
 
     def _run_shards(self, full, mb: dict, rows: int, grads: bool) -> list:
@@ -510,8 +525,8 @@ class _MeshStep:
         with self._timed("reduce_s"):
             for path, spec in self.spec_of.items():
                 contribs = torch.stack([a.pop(path) for a in acc])
-                if path in self.partial:     # (shards, L, local model, ...) -> model first
-                    contribs = contribs.movedim(2, 1)
+                if path in self.partial:     # (shards, [L,] local model, ...) -> model first
+                    contribs = contribs.movedim(1 + self.copy_dim[path], 1)
                 # a leaf gathered whole has a complete gradient: its block is taken
                 held = ("model",) if self.tp is not None and path not in self.whole else ()
                 g = reduce_blocks(contribs.reshape(self.grid + list(contribs.shape[1:])),

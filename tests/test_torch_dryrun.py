@@ -4,11 +4,12 @@
 The reference's side runs once, in one subprocess with 4 fake CPU devices
 (``tests/test_torch_ep.py``'s way), started before the port's side runs
 here: it lowers and compiles a reduced dense (qwen1.5-4b) and a reduced MoE
-(qwen3-moe) train cell on a (2, 2) and on a (2, 1) host mesh, and a reduced
-index cell (n = 4,096, d = 32) on (2, 2), and reports each cell's
+(qwen3-moe) train cell on a (2, 2) and on a (2, 1) host mesh, a reduced
+encoder-decoder (seamless-m4t) train cell on (2, 2), and a reduced index
+cell (n = 4,096, d = 32) on (2, 2), and reports each cell's
 ``memory_analysis().argument_size_in_bytes`` and ``analyze_hlo`` FLOPs.
 
-* The card's argument bytes equal the reference's exactly, for the three
+* The card's argument bytes equal the reference's exactly, for the four
   cells on (2, 2).
 * The train cells' FLOPs on (2, 1) (no model split: both packages compute
   the same products a device) lie within 5 % of the reference's, and the
@@ -21,7 +22,9 @@ index cell (n = 4,096, d = 32) on (2, 2), and reports each cell's
   expert-parallel path with a device's capacity (``capacity`` over
   ``B·S / 2`` tokens); the experts' three products over the extra slots,
   run forward, again in the remat recompute and twice in the backward, are
-  that term.
+  that term.  The encoder-decoder cell on (2, 2), split too, after two
+  stated terms: ``frame_proj`` whole on every card, and the split step's
+  whole recompute (no early stop) of each block's last MLP product.
 * The tally charges each kernel entry its kernel's own work (no product
   FLOPs for these two kernels: their operations go to ``ops``) and counts
   none of its plain version's ops; the index cell's kernel charges are the
@@ -52,6 +55,7 @@ from repro_torch.models import moe
 REPO = pathlib.Path(__file__).resolve().parents[1]
 TIMEOUT = 240
 ARCHS = ("qwen1.5-4b", "qwen3-moe-235b-a22b")
+SPLIT = ("seamless-m4t-medium",)      # a family outside the decoder, its (2, 2) cell only
 TRAIN = dict(seq=16, batch=4)
 INDEX = dict(n_global=4096, dim=32, m_deg=16, ef=16, nq=16)
 
@@ -66,10 +70,11 @@ from repro.models import shard_ctx
 
 dryrun.SHAPES = {"train_4k": registry.ShapeSpec("train_4k", TRAIN["seq"], TRAIN["batch"],
                                                 "train")}
-cfgs = {a: dataclasses.replace(registry.get_arch(a).reduced, n_layers=1) for a in ARCHS}
+cfgs = {a: dataclasses.replace(registry.get_arch(a).reduced, n_layers=1) for a in ARCHS + SPLIT}
 dryrun.get_arch = lambda name: types.SimpleNamespace(config=cfgs[name])
 # the index cell (the longest compile) first
-jobs = [("index", (2, 2))] + [(a, s) for a in ARCHS for s in ((2, 2), (2, 1))]
+jobs = ([("index", (2, 2))] + [(a, s) for a in ARCHS for s in ((2, 2), (2, 1))]
+        + [(a, (2, 2)) for a in SPLIT])
 
 
 def compiled(lo, flops: bool):
@@ -116,7 +121,8 @@ def reference():
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu",
                DRYRUN_XLA_FLAGS="--xla_force_host_platform_device_count=4 "
                                 "--xla_backend_optimization_level=0")
-    code = f"ARCHS = {ARCHS!r}\nTRAIN = {TRAIN!r}\nINDEX = {INDEX!r}\n" + REFERENCE
+    code = (f"ARCHS = {ARCHS!r}\nSPLIT = {SPLIT!r}\nTRAIN = {TRAIN!r}\nINDEX = {INDEX!r}\n"
+            + REFERENCE)
     proc = subprocess.Popen([sys.executable, "-c", code], env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
     result = {}
@@ -273,7 +279,7 @@ def test_train_cell_runs_the_mesh_step_collectives(arch):
 
 
 # -------------------------------------------------------- the reference
-@pytest.mark.parametrize("cell", list(ARCHS) + ["index"])
+@pytest.mark.parametrize("cell", list(ARCHS) + list(SPLIT) + ["index"])
 def test_argument_bytes_equal_the_reference(reference, cell):
     if cell == "index":
         mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
@@ -321,4 +327,27 @@ def test_moe_train_flops_within_five_percent_on_2x2(reference):
     extra = cfg.n_experts // tp * (moe.capacity(cfg, T) - tp * moe.capacity(cfg, T // 4))
     got -= 3 * 2 * extra * cfg.d_model * cfg.moe_d_ff * (4 if cfg.remat else 3) * cfg.n_layers
     want = reference()["qwen3-moe-235b-a22b@2x2"]["flops"]
+    assert abs(got - want) <= 0.05 * want, (got, want)
+
+
+def test_encdec_train_flops_within_five_percent_on_2x2(reference):
+    """Reduced seamless-m4t (2 encoder layers, 1 decoder layer) on (2, 2)
+    runs the tensor-parallel step: a card computes its model shard's
+    encoder, decoder and cross attention heads, MLP columns and vocab rows.
+    Two terms the reference's partitioned step does not have are taken off
+    first: ``frame_proj`` runs whole on every card (its columns are the
+    encoder input's channels; gathering the leaf moves fewer bytes than
+    gathering its output's), half of its forward and of its weight
+    gradient over the reference's split; and the split step's recompute
+    of a checkpointed block runs whole (no early stop, so that its
+    model-axis sums run as often on every process), where the unsplit
+    step's and the reference's skip each block's last MLP product."""
+    cfg = cfg_of("seamless-m4t-medium")
+    got = port_cell("seamless-m4t-medium", (2, 2))["flops"]
+    rows, S_enc, S_dec = TRAIN["batch"] // 2, TRAIN["seq"] // 2, TRAIN["seq"] // 2
+    frame_proj = 2 * rows * S_enc * cfg.d_model * cfg.d_model * 2 // 2
+    w_down = (cfg.enc_layers * S_enc + cfg.n_layers * S_dec) * rows * 2 * cfg.d_ff // 2 \
+        * cfg.d_model
+    got -= frame_proj + w_down
+    want = reference()["seamless-m4t-medium@2x2"]["flops"]
     assert abs(got - want) <= 0.05 * want, (got, want)

@@ -14,20 +14,25 @@ reference's.
   10× wider than the dense ones: the port's one-device step itself lies
   1.4e-6 from the reference's on zamba2), on masked batches, for
   reduced qwen1.5-4b, qwen3-32b, minicpm3-4b, starcoder2-15b and
-  chameleon-34b, qwen3-moe (whose router drops assignments here) and
-  llama4-maverick (tensor-parallel along ``model``, the MoE archs' experts
-  split too; also on ``(1, 4)``, where qwen3-32b's, starcoder2-15b's and
-  the MoE archs' kv heads stay replicated), rwkv6 and zamba2 (llama4
-  within 1e-5 both ways: ``ARCH_TOL``);
+  chameleon-34b, qwen3-moe (whose router drops assignments here),
+  llama4-maverick, rwkv6, zamba2 and seamless-m4t-medium (all
+  tensor-parallel along ``model``, the MoE archs' experts split too; also
+  on ``(1, 4)``, where qwen3-32b's, starcoder2-15b's and the MoE archs'
+  kv heads stay replicated and zamba2's 2 Mamba heads run whole) (llama4
+  within 1e-5 both ways: ``ARCH_TOL``; zamba2's split meshes within 1e-5
+  of the one-device step: ``SPLIT_TOL``; the encdec family within 1e-5 of
+  the reference, whose one-device step the port's lies 1.1e-6 to 2.1e-6
+  from on seamless-m4t);
   the MoE's dropped assignments equal the one-device
   dispatch's (global capacity, ranks across shards) and its aux within
   1e-6 relative of the reference's.
 * Microbatches 2 on a mesh against the one-device step with 2; the eval
   step.
 * 2 and 4 gloo processes (spawned, a file store, a time limit) train
-  bitwise what one process holding every shard trains, the decoders
-  tensor-parallel on (2, 2) and (1, 2) among them (qwen3-moe's and
-  llama4-maverick's experts split along ``model``); a save from a
+  bitwise what one process holding every shard trains, the decoders,
+  zamba2 and seamless-m4t tensor-parallel on (2, 2) and (1, 2) among them
+  (qwen3-moe's and llama4-maverick's experts split along ``model``); a
+  save from a
   2-process mesh writes a one-device save's array files byte for byte,
   and ``elastic.resume`` re-shards it onto another mesh in both processes.
   The collective bytes each rank's steps counted
@@ -70,21 +75,37 @@ from torch_towers import (
     TRAIN_DECAY, assert_trees_close, lm_batch_np, redraw_constant_leaves, torch_batch,
 )
 
-REF_STEP_TOL = {"rwkv6": 1e-5, "zamba2": 1e-5}     # by family; 1e-6 otherwise
+# by family, 1e-6 otherwise: the port's one-device step itself lies 1.4e-6 from the
+# reference's on zamba2, and 1.1e-6 to 2.1e-6 on seamless-m4t (seeds 7, 9, 11)
+REF_STEP_TOL = {"rwkv6": 1e-5, "zamba2": 1e-5, "encdec": 1e-5}
 # reduced llama4-maverick's interleaved dense blocks' near one-hot attention amplifies
 # rounding (tests/test_torch_grads_moe.py): the port's one-device step itself lies
 # 2.1e-6 to 5.8e-6 from the reference's (parameters at seeds 11, 7, 9), and a model split
 # adds up to 3.8e-6 against it; so its steps are held to 1e-5, both ways
 ARCH_TOL = {"llama4-maverick-400b-a17b": 1e-5}      # 1e-6 otherwise
+# reduced zamba2's split of its Mamba2 heads rounds its products and the gated norm's
+# sum otherwise than the one-device step, and its shared attention amplifies that: the
+# parameters after a step lie 1.06e-6 from the one-device step's here, in embed, where
+# Adam's first step passes a gradient's rounding through (python -m
+# repro_torch.bench.split_rounding --device cpu --seeds 1 2 3 4 5: up to 9.9e-7, the
+# unsplit data-parallel step at most 6e-8, a one-device step from weights moved by 2^-24
+# up to 1.5e-6); in float64 the split step lies within
+# 1e-6 (tests/test_torch_tp_recurrent.py), so a split mesh holds it to 1e-5 against the
+# one-device step, the reference's bound for the family
+SPLIT_TOL = {"zamba2-2.7b": 1e-5}
 ARCHS = ("qwen1.5-4b", "qwen3-32b", "minicpm3-4b", "starcoder2-15b", "chameleon-34b",
-         "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b", "rwkv6-1.6b", "zamba2-2.7b")
+         "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b", "rwkv6-1.6b", "zamba2-2.7b",
+         "seamless-m4t-medium")
 MESHES = ((2, 2), (4, 1), (1, 2))
 # the tensor-parallel archs also on (1, 4), where reduced qwen3-32b's 2 kv heads and
-# starcoder2-15b's stay replicated along model (their wk/wv gradients partial)
+# starcoder2-15b's stay replicated along model (their wk/wv gradients partial), and
+# reduced zamba2's 2 Mamba heads do not split (its Mamba layers run whole)
 TP_ARCHS = ("qwen1.5-4b", "qwen3-32b", "minicpm3-4b", "starcoder2-15b", "chameleon-34b",
-            "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b")
+            "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b", "rwkv6-1.6b", "zamba2-2.7b",
+            "seamless-m4t-medium")
 TP_MESHES = MESHES + ((1, 4),)
 B, S = 4, 16
+ENC_LEN = 6                        # the frames lm_batch_np draws for encdec
 TIMEOUT = 150.0
 
 
@@ -167,7 +188,8 @@ def test_mesh_step_matches_one_device_and_reference(arch):
         assert drops > 0, "the test batch should make the router drop assignments"
     for shape in TP_MESHES if arch in TP_ARCHS else MESHES:
         got, m = mesh_step(model, shape, params, batch)
-        assert max_err(got, p1) <= ARCH_TOL.get(arch, 1e-6), (arch, shape)
+        tol = SPLIT_TOL.get(arch, 1e-6) if shape[1] > 1 else 1e-6
+        assert max_err(got, p1) <= ARCH_TOL.get(arch, tol), (arch, shape)
         assert_trees_close(got, ref_params, rtol=0, what=f"{arch} {shape}",
                            atol=ARCH_TOL.get(arch, REF_STEP_TOL.get(cfg.family, 1e-6)))
         assert abs(float(m["loss"]) - float(rm["loss"])) <= 1e-5 * float(rm["loss"])
@@ -206,15 +228,15 @@ def test_mesh_microbatches_and_eval():
 @pytest.fixture(scope="module")
 def processes(tmp_path_factory):
     """Worlds 2 and 4 side by side: three reduced archs' 2 mesh steps on
-    (2, 2), the dense one and the MoE one tensor-parallel (world 2 also
-    qwen1.5-4b on (4, 1), and minicpm3-4b and llama4-maverick
+    (2, 2), all three tensor-parallel (world 2 also qwen1.5-4b on (4, 1),
+    and minicpm3-4b, llama4-maverick and seamless-m4t-medium
     tensor-parallel on (1, 2), their model shards one a process), and
     world 2's save and resume."""
     tmp = tmp_path_factory.mktemp("mesh_procs")
     jobs, arrays = [], {}
     for arch, shape in (("qwen3-moe-235b-a22b", (2, 2)), ("zamba2-2.7b", (2, 2)),
                         ("qwen1.5-4b", (4, 1)), ("qwen3-32b", (2, 2)), ("minicpm3-4b", (1, 2)),
-                        ("llama4-maverick-400b-a17b", (1, 2))):
+                        ("llama4-maverick-400b-a17b", (1, 2)), ("seamless-m4t-medium", (1, 2))):
         cfg = reduced(arch)
         name = f"{arch}@{shape[0]}x{shape[1]}"
         jobs.append(dict(name=name, kind="train", arch=arch, reduced=True, dtype="float32",
@@ -254,8 +276,8 @@ def one_process_result(job, arrays) -> dict:
     name = job["name"]
     full = tree_of(model, {k[len(name) + 3:]: v for k, v in arrays.items()
                          if k.startswith(f"{name}/p/")})
-    batches = [{k: torch.as_tensor(arrays[f"{name}/b{i}/{k}"]) for k in ("tokens", "labels",
-                                                                          "mask")}
+    batches = [{k: torch.as_tensor(arrays[f"{name}/b{i}/{k}"])
+                for k in ("tokens", "labels", "mask", "frames") if f"{name}/b{i}/{k}" in arrays}
                for i in range(job["steps"])]
     mesh = mesh_of(job["mesh"])
     blocks, opt, _ = run_mesh_train(model, mesh, full, batches, job["opt"])
@@ -281,7 +303,8 @@ def test_collective_plan_equals_the_gloo_counts(processes, world):
             coords = tuple(int(c) for c in np.unravel_index(r, procs))
             mesh = Mesh(tuple(job["mesh"]), ("data", "model"), torch.device("cpu"), procs,
                         coords, {})
-            plan = mesh_step_collectives(model, mesh, batch=(B, S)).stats().by_type
+            frames = (ENC_LEN,) if model.cfg.family == "encdec" else ()
+            plan = mesh_step_collectives(model, mesh, batch=(B, S) + frames).stats().by_type
             assert plan and all(v > 0 for v in plan.values())
             assert log[job["name"]]["collective_bytes"] == [plan] * job["steps"], (job, r)
 
