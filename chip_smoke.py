@@ -309,7 +309,9 @@ the script exits non-zero without printing a result):
    (a) ``python -m repro_torch.launch.dryrun --mesh single`` in three
    subprocesses side by side, for qwen1.5-4b ``train_4k``, qwen3-moe
    ``decode_32k`` (both counted on ``meta`` as one card of the 16×16 mesh
-   runs them) and ``--index-cell`` (one real step of one shard on the
+   runs them; the decode cell is the split serve step of phase 19, a
+   card's heads, experts, vocab columns and sequence block of the cache)
+   and ``--index-cell`` (one real step of one shard on the
    card); each exits 0 and its record and roofline row are printed;
    (b) 13(c)'s cell (qwen1.5-4b whole, B = 4, S = 512) counted on a (1, 1)
    mesh: its compute, memory and collective terms beside 13(c)'s measured
@@ -391,6 +393,33 @@ the script exits non-zero without printing a result):
    collective bytes each counted equal to the plan; each process's peak
    over the one-device step's, its ``gather_s``, ``tp_s`` and
    ``reduce_s`` printed.  It launches no kernel of the kernels line.
+
+19. the decoders' split prefill and decode (``launch/dryrun.py``'s
+   ``prefill_step`` and ``serve_step``: each ``model`` shard's heads, MLP
+   columns, experts and vocab columns, its block of the KV cache, the
+   sequence-split cache's partial softmaxes merged in shard order, the
+   next token the argmax over the split vocab), float32, B = 2, a prompt
+   of 240 in a cache of 256 (the rows' lengths 240 and 229), then 16
+   teacher-forced decode steps (``SERVE_TP_FULL``): qwen3-32b at full
+   width cut to 2 of its 64 layers on (1, 2) (its 8 kv heads split) and on
+   (1, 16) in two processes of 8 model shards each (8 kv heads on 16: the
+   cache split by its sequence, 16 positions a shard); minicpm3-4b cut to
+   2 of 62 layers on (1, 2) (MLA's latent cache, split by its sequence);
+   qwen3-moe-235b-a22b cut to 1 of 94 layers on (1, 2) (64 experts a
+   process).  Each cell's one-device prefill and decode run first, alone
+   in this process, then the same split with both shards in this process,
+   then two gloo processes forked from the server run every cell
+   (``launch/sharded.py::serve_check_all``).  Checks: the prefill's
+   logits and caches, each step's logits and the last caches within
+   ``SERVE_TP_TOL`` of the one-device run's (3 times the largest distance
+   of a one-device run from weights moved by 2^-24 over four seeds,
+   ``python -m repro_torch.bench.split_rounding --serve``), the next
+   tokens equal, every process's blocks bitwise the one-process run's, and
+   each process's collective bytes, call by call, equal to
+   ``hlo_analysis.serve_step_collectives``'s plan.  It prints the ms of
+   the prefill and of a decode step with their ``tp_s`` (the model-axis
+   collectives over gloo) and each process's peak memory against the
+   one-device run's.  It launches no kernel of the kernels line.
 
 Before the last lines the script checks that no process it started (the
 compiler, the spawned ranks, multiprocessing's resource tracker) is still
@@ -661,6 +690,30 @@ FAMILY_TP_TOL = {("rwkv6-1.6b", "float32"): (TP_PARAM_TOL, 1e-6, 5e-5),
                  ("zamba2-2.7b", "float64"): (TP_PARAM_TOL, 1e-6, 2e-5),
                  ("seamless-m4t-medium", "float32"): (None, 5e-5, 5e-2),
                  ("seamless-m4t-medium", "float64"): (TP_PARAM_TOL, 1e-6, 1e-6)}
+# phase 19: the decoders' split prefill and decode, each cell held to a one-device run made
+# first, then to the same split in one process (bitwise), in two gloo processes
+SERVE_TP = dict(batch=2, prompt=240, cache=256, steps=16, lens=[240, 229], seed=0,
+                dtype="float32", reduced=False)
+SERVE_TP_FULL = (
+    dict(SERVE_TP, arch="qwen3-32b", layers=2, mesh=(1, 2)),       # its 8 kv heads split
+    dict(SERVE_TP, arch="qwen3-32b", layers=2, mesh=(1, 16)),      # 8 kv heads on 16: positions
+    dict(SERVE_TP, arch="minicpm3-4b", layers=2, mesh=(1, 2)),     # MLA: positions
+    dict(SERVE_TP, arch="qwen3-moe-235b-a22b", layers=1, mesh=(1, 2)))
+SERVE_TP_CUTS = {
+    "qwen3-32b": "n_layers 64 -> 2 at full width: 2,531,026,432 parameters, ~10 GB in float32",
+    "minicpm3-4b": "n_layers 62 -> 2 at full width: 501,406,208 parameters",
+    "qwen3-moe-235b-a22b": ("n_layers 94 -> 1 at full width: 3,732,418,816 parameters, ~15 GB "
+                            "in float32, 64 of its 128 experts a process")}
+# (arch, mesh) -> the bound on max |split - one device| / max |one device| of (logits,
+# caches): 3 times the largest distance of a one-device run from weights each scaled by
+# 1 + 2^-24 N(0, 1), over seeds 0-3 on an H100 80GB HBM3 at 700 W (python -m
+# repro_torch.bench.split_rounding --serve; PERF.md section 6), where the split read at
+# most 1.47e-6 / 1.84e-6 (qwen3-32b), 6.68e-6 / 1.86e-6 (minicpm3-4b) and 2.00e-6 /
+# 5.37e-7 (qwen3-moe)
+SERVE_TP_TOL = {("qwen3-32b", (1, 2)): (3 * 1.41e-6, 3 * 1.26e-6),
+                ("qwen3-32b", (1, 16)): (3 * 1.41e-6, 3 * 1.26e-6),
+                ("minicpm3-4b", (1, 2)): (3 * 9.31e-6, 3 * 3.16e-6),
+                ("qwen3-moe-235b-a22b", (1, 2)): (3 * 1.46e-6, 3 * 3.28e-7)}
 # phases 13(c) and 14(d) leave their measured numbers here for phase 15
 MEASURED = {}
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
@@ -3881,6 +3934,74 @@ def phase18_family_tensor_parallel(dev, smi) -> None:
     shutil.rmtree(work, ignore_errors=True)
 
 
+def phase19_serve_tensor_parallel(dev, smi) -> None:
+    """The decoders' split prefill and decode at full width on the card
+    (see the module docstring)."""
+    import shutil
+    import statistics
+
+    import torch
+
+    from repro_torch.launch.hlo_analysis import serve_step_collectives
+    from repro_torch.launch.mesh import Mesh, _process_grid
+    from repro_torch.launch.sharded import serve_check_all, tp_model
+
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "serve_tp_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    threads = max(1, (os.cpu_count() or 2) // MESH_PROCS)
+    cells = serve_check_all([dict(c, device=dev.type, threads=threads) for c in SERVE_TP_FULL],
+                            work, MESH_PROCS, TP_SPAWN_TIMEOUT)
+    out, bad = [], {}
+    for cell in cells:
+        c = cell["params"]
+        name = f"{c['arch']} {tuple(c['mesh'])}"
+        model = tp_model(c, c["dtype"])
+        procs = _process_grid(c["mesh"], MESH_PROCS)
+        tol = SERVE_TP_TOL.get((c["arch"], tuple(c["mesh"])))
+        rel = cell["rel"]
+        checks = dict(next_equal=cell["next_equal"],
+                      bitwise_one_process=cell["bitwise_one_process"],
+                      within_bound=tol is not None and all(
+                          rel[k] <= tol[0 if k.endswith("logits") else 1] for k in rel))
+        per = []
+        for r, lg in enumerate(cell["logs"]):
+            mesh = Mesh(tuple(c["mesh"]), ("data", "model"), torch.device("cpu"), procs,
+                        tuple(int(x) for x in divmod(r, procs[1])), {})
+            plan = [serve_step_collectives(model, mesh, "prefill",
+                                           batch=(c["batch"], c["prompt"])).stats().by_type]
+            plan += [serve_step_collectives(model, mesh, "decode", batch=(
+                c["batch"], c["cache"])).stats().by_type] * c["steps"]
+            checks[f"plan_rank{r}"] = lg["collective_bytes"] == plan
+            peak = lg["peak_memory_allocated"]
+            per.append(dict(
+                rank=r, prefill_ms=lg["seconds"][0] * 1e3, prefill_tp_ms=lg["tp_s"][0] * 1e3,
+                decode_ms=[x * 1e3 for x in lg["seconds"][1:]],
+                decode_tp_ms=[x * 1e3 for x in lg["tp_s"][1:]],
+                decode_median_ms=statistics.median(lg["seconds"][1:]) * 1e3,
+                decode_tp_median_ms=statistics.median(lg["tp_s"][1:]) * 1e3,
+                decode_compute_median_ms=statistics.median(
+                    a - b for a, b in zip(lg["seconds"][1:], lg["tp_s"][1:])) * 1e3,
+                peak_memory_allocated=peak, param_bytes=lg["param_bytes"],
+                peak_ratio=peak / cell["one_device"]["peak_memory_allocated"] if peak else None,
+                collective_bytes_prefill=lg["collective_bytes"][0],
+                collective_bytes_decode=lg["collective_bytes"][1]))
+        if not all(checks.values()):
+            bad[name] = dict(checks, rel=rel, bound=tol)
+        one = cell["one_process"]
+        out.append(dict(arch=c["arch"], mesh=c["mesh"], cut=SERVE_TP_CUTS[c["arch"]],
+                        rel=rel, bound=tol, checks=checks, per_process=per,
+                        one_device=cell["one_device"],
+                        one_process_decode_median_ms=statistics.median(one["seconds"][1:]) * 1e3,
+                        one_process_prefill_ms=one["seconds"][0] * 1e3))
+    emit(phase=19, card=smi, procs=MESH_PROCS, batch=SERVE_TP["batch"],
+         prompt=SERVE_TP["prompt"], cache=SERVE_TP["cache"], steps=SERVE_TP["steps"],
+         dtype=SERVE_TP["dtype"], cells=out, spawn_seconds=cells[0]["spawn_seconds"],
+         seconds=time.perf_counter() - t0)
+    check(not bad, f"19: the split serve step's checks failed: {bad}")
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def result_on_cpu(res):
     """A card result's tensors on the CPU."""
     from repro_torch.core import SearchResult
@@ -3932,6 +4053,7 @@ def main() -> int:
     run(16, phase16_tensor_parallel, dev, smi)
     run(17, phase17_moe_tensor_parallel, dev, smi)
     run(18, phase18_family_tensor_parallel, dev, smi)
+    run(19, phase19_serve_tensor_parallel, dev, smi)
     stop_forkserver()
 
     kernels = []

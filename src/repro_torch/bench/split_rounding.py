@@ -23,6 +23,20 @@ largest parameter error and its loss and grad norm relative to the
 one-device step's, the card's name and power limit beside them (``cpu``
 off the card).  The steps run in PyTorch's deterministic mode under
 phase 18's ``AdamWConfig(eps=1e-3)``.
+
+With ``--serve`` it reads the same for ``chip_smoke.py`` phase 19's split
+prefill and decode (its bounds, ``SERVE_TP_TOL``): for each of phase 19's
+cells (on the card qwen3-32b 2 layers on (1, 2) and (1, 16), minicpm3-4b 2
+layers and qwen3-moe 1 layer on (1, 2), B = 2, a prompt of 240 in a cache
+of 256, 16 decode steps; on the CPU their reduced configs, (1, 16) cut to
+(1, 4), B = 4, a prompt of 24 in a cache of 32, 8 steps) and each seed,
+``launch/sharded.py::serve_check_all`` in two gloo processes, and a
+one-device run from weights moved as above: ``max |split − one device| /
+max |one device|`` of the prefill's logits and caches, the decode steps'
+logits and the last caches, the perturbed run's beside them, and whether
+the next tokens agree::
+
+    python -m repro_torch.bench.split_rounding --serve --seeds 0 1 2 3
 """
 from __future__ import annotations
 
@@ -49,6 +63,13 @@ THREADS = 1                    # torch threads a rank
 PERTURB = 2.0 ** -24           # the perturbed one-device step's relative weight noise
 # (name, mesh, dtypes): the split step in both dtypes, the unsplit step in float32
 STEPS = (("split", (1, 2), ("float32", "float64")), ("unsplit", (2, 1), ("float32",)))
+
+
+# phase 19's cells: (arch, layers, mesh), and its shapes on the card and on the CPU
+SERVE_CELLS = (("qwen3-32b", 2, (1, 2)), ("qwen3-32b", 2, (1, 16)), ("minicpm3-4b", 2, (1, 2)),
+               ("qwen3-moe-235b-a22b", 1, (1, 2)))
+SERVE_SHAPE = {"cuda": dict(batch=2, prompt=240, cache=256, steps=16, lens=[240, 229]),
+               "cpu": dict(batch=4, prompt=24, cache=32, steps=8, lens=[24, 20, 13, 7])}
 
 
 def card_name(device) -> str:
@@ -81,6 +102,47 @@ def cells_of(device: str, seed: int) -> list[tuple[str, dict]]:
     return out
 
 
+def serve_cells_of(device: str, seed: int) -> list[dict]:
+    """``serve_check_all``'s cells of one seed."""
+    from repro_torch.configs import get_arch
+
+    reduced = device == "cpu"
+    out = []
+    for arch, layers, mesh in SERVE_CELLS:
+        if reduced:
+            layers, mesh = get_arch(arch).reduced.n_layers, (1, min(mesh[1], 4))
+        out.append(dict(arch=arch, reduced=reduced, layers=layers, mesh=mesh, dtype="float32",
+                        seed=seed, device=device, threads=THREADS, **SERVE_SHAPE[device]))
+    return out
+
+
+def serve_readings(device: str, seeds, work: pathlib.Path, card: str) -> None:
+    """The ``--serve`` readings (module docstring), a JSON line a cell and
+    seed."""
+    from repro_torch.launch.sharded import (
+        _rel, _serve_parts, serve_check_all, serve_reference,
+    )
+
+    for seed in seeds:
+        cells = serve_cells_of(device, seed)
+        done = serve_check_all(cells, work / str(seed), timeout=900)
+        for i, (params, cell) in enumerate(zip(cells, done)):
+            path = work / str(seed) / str(i) / "perturbed.pt"
+            serve_reference(params, path, perturb=PERTURB)
+            one, moved = (_serve_parts(torch.load(p)) for p in (
+                work / str(seed) / str(i) / "one_device.pt", path))
+            next_moved = all(torch.equal(a, b) for a, b in zip(
+                torch.load(path)["next"], torch.load(work / str(seed) / str(i) /
+                                                     "one_device.pt")["next"]))
+            print(json.dumps(dict(
+                arch=params["arch"], reduced=params["reduced"], mesh=params["mesh"], seed=seed,
+                card=card, split=cell["rel"], perturbed={k: _rel(moved[k], one[k]) for k in one},
+                next_equal=cell["next_equal"], perturbed_next_equal=next_moved,
+                bitwise_one_process=cell["bitwise_one_process"],
+                decode_ms=[x * 1e3 for x in cell["logs"][0]["seconds"][1:]])), flush=True)
+        shutil.rmtree(work / str(seed))
+
+
 def main(argv=None) -> int:
     from repro_torch.launch.sharded import (
         start_forkserver, stop_forkserver, tp_check_all, tp_reference,
@@ -89,6 +151,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seeds", nargs="+", type=int, default=[0])
     ap.add_argument("--device", default="cuda", choices=list(SHAPE))
+    ap.add_argument("--serve", action="store_true",
+                    help="read phase 19's split prefill and decode instead")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("split_rounding: no CUDA device is available (pass --device cpu)")
@@ -96,6 +160,9 @@ def main(argv=None) -> int:
     work = pathlib.Path(tempfile.mkdtemp(prefix="split_rounding_"))
     start_forkserver(("repro_torch.launch.sharded", "torch._dynamo"))
     try:
+        if args.serve:
+            serve_readings(args.device, args.seeds, work, card)
+            return 0
         for seed in args.seeds:
             cells = cells_of(args.device, seed)
             done = tp_check_all([p for _, p in cells], work / str(seed), timeout=900)

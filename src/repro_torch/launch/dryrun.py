@@ -31,10 +31,20 @@ moves, a peer's block is the card's own).  A cell counts that card's work:
   the gradients' float32 blocks, the global norm and AdamW on the card's
   blocks, with bf16 moments for MoE configs (the reference's
   ``state_dtype``);
-* ``prefill``/``decode``: the card's rows of the request batch (all of them
-  when the data axes do not divide it) with the whole parameters and
-  decode state; the port has no mesh serve path, so the card gathers the
-  parameters, and a state block split along other axes.
+* ``prefill``/``decode``: the reference's jitted ``prefill_step`` and
+  ``serve_step``, as :func:`prefill_step` and :func:`serve_step` run them
+  on the card (the decoder family): its rows of the request batch, its
+  parameter blocks gathered along the data axes only (the router whole,
+  ``transformer.tp_gathered``), its ``model`` shard's heads, MLP
+  columns, experts and vocab columns, and its block of the decode cache
+  (``launch/shardings.py::decode_state_specs``: its kv heads where they
+  divide ``model``, else its block of positions of every kv head, whose
+  partial softmaxes merge over ``model``); a prefill returns the
+  last-position logits' columns and the cache block in that layout, a
+  decode step the new cache block and the next token, the argmax over the
+  vocab split along ``model``.  rwkv6, zamba2 and encdec still count a
+  card's rows against the whole parameters and state (their split serve
+  step is not ported yet).
 
 The towers' cells run on ``meta`` tensors: nothing is allocated.  A tally is
 linear in the depth (every layer runs the same ops), so a cell runs its
@@ -75,6 +85,7 @@ Exit code != 0 on any failed cell.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -92,7 +103,7 @@ from repro_torch.distributed.collectives import Planned
 from repro_torch.launch import shardings as shard_lib
 from repro_torch.launch.hlo_analysis import (
     CollectivePlan, Counts, HloStats, StepTally, index_merge_collectives,
-    mesh_step_collectives,
+    mesh_step_collectives, serve_step_collectives,
 )
 from repro_torch.launch.mesh import Mesh, make_production_mesh
 from repro_torch.models.api import get_model
@@ -183,6 +194,8 @@ def build_cell(arch_name: str, shape_name, mesh: Mesh, *, cfg=None):
         plan = mesh_step_collectives(model, card, batch=dims)
         return (lambda: _train_step(model, ocfg, card, batch)), mem, plan
 
+    if cfg.family == "decoder":
+        return _split_serve_cell(model, shape, mesh, card, params, pspecs, p_bytes)
     plan = CollectivePlan()
     for path, t in tree_leaves(params):
         plan.gather("param_gather", shard_lib.block_shape(t.shape, card, spec_of[path]),
@@ -208,6 +221,163 @@ def build_cell(arch_name: str, shape_name, mesh: Mesh, *, cfg=None):
     mem = dict(argument=p_bytes + s_bytes + t_bytes, output=s_bytes + t_bytes, alias=s_bytes)
     rows_state = decode_state_specs(cfg, rows, S)    # the card's rows, the whole cache
     return (lambda: _decode_step(model, params, rows_state)), mem, plan
+
+
+def _split_serve_cell(model, shape, mesh: Mesh, card: Mesh, params, pspecs, p_bytes: int):
+    """:func:`build_cell`'s prefill and decode cells of the decoder family:
+    :func:`prefill_step` and :func:`serve_step` on the card's blocks."""
+    cfg = model.cfg
+    B, S = shape.global_batch, shape.seq_len
+    blocks = _blocks(params, card, pspecs)
+    plan = serve_step_collectives(model, card, shape.kind, batch=(B, S))
+    if shape.kind == "prefill":
+        batch = input_specs(cfg, shape)
+        bspec = batch_spec(mesh)
+        b_bytes = sum(_block_bytes(t, card, bspec) for t in batch.values())
+        mem = dict(argument=p_bytes + b_bytes, output=None, alias=0)
+        card_batch = {k: torch.empty(shard_lib.block_shape(v.shape, card, bspec), dtype=v.dtype,
+                                     device=META) for k, v in batch.items()}
+        return (lambda: prefill_step(model, card, blocks, card_batch)), mem, plan
+    state = decode_state_specs(cfg, B, S)
+    sspecs = shard_lib.decode_state_specs(cfg, mesh, B, S)
+    tspec = shard_lib.token_sharding(mesh, B).spec
+    s_bytes = sum(_block_bytes(t, card, sp) for t, sp in zip(_walk(state), _walk(sspecs)))
+    t_bytes = math.prod(shard_lib.block_shape((B, 1), card, tspec)) * 4
+    mem = dict(argument=p_bytes + s_bytes + t_bytes, output=s_bytes + t_bytes, alias=s_bytes)
+    card_state = type(state)(
+        tuple(torch.empty(shard_lib.block_shape(t.shape, card, sp), dtype=t.dtype, device=META)
+              for t, sp in zip(state.cache, sspecs.cache)),
+        torch.empty(shard_lib.block_shape((B,), card, sspecs.cache_len), dtype=torch.int32,
+                    device=META))
+    tokens = torch.empty(shard_lib.block_shape((B, 1), card, tspec), dtype=torch.int32,
+                         device=META)
+    return (lambda: serve_step(model, card, blocks, card_state, tokens)), mem, plan
+
+
+# ---------------------------------------------------------------------------
+# The decoders' split serve step
+# ---------------------------------------------------------------------------
+def _serve_setup(model, card: Mesh, params, B: int, S: int, timing):
+    """What a split prefill or decode step of a ``(B, S)`` batch on
+    ``card`` runs with: the parameters as the model takes them (gathered
+    along the data axes, the tensor-parallel step's partial leaves one copy
+    a local ``model`` shard), the tensor-parallel context (``None`` where
+    ``model`` has one shard) with ``"sequence"`` where the cache's
+    sequence splits along ``model``, and this process's data shards."""
+    from repro_torch.models import shard_ctx
+    from repro_torch.train.step import _MeshStep
+
+    cfg = model.cfg
+    if cfg.family != "decoder":
+        raise ValueError(f"{cfg.name}: the split serve step runs the decoder family, not "
+                         f"{cfg.family}")
+    step = _MeshStep(model, None, card, 1, False)
+    step.timing = timing
+    full = step._gather(params)
+    live = optim.tree_from_paths(full, {path: step._live(path, p, False)
+                                        for path, p in tree_leaves(full)})
+    seq = shard_lib.dim_axes(shard_lib.decode_state_specs(cfg, card, B, S).cache[0], 5)[2]
+    if any(card.size(a) > 1 for a in seq if a != "model"):
+        raise ValueError(f"{cfg.name}: a batch of {B} does not split over the data axes "
+                         f"{step.dp_axes}: the split serve step does not split the cache's "
+                         "sequence over them")
+    tp = step.tp
+    if tp is not None and "model" in seq:
+        tp = dataclasses.replace(tp, split=tp.split | {shard_ctx.SEQUENCE})
+    return live, tp, len(step.shards)
+
+
+def _global_rows(card: Mesh, rows: int) -> int:
+    """The request batch whose block along the data axes has ``rows`` rows."""
+    dp = _dp_axes(card)
+    local = math.prod(card.local(a) for a in dp)
+    if rows % local:
+        raise ValueError(f"a block of {rows} rows does not split over the data axes {dp} "
+                         f"({local} shards in this process)")
+    return rows // local * math.prod(card.size(a) for a in dp)
+
+
+def _join(parts, dim: int) -> torch.Tensor:
+    """The data shards' parts in order (the one part itself, no copy)."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+
+def _context(tp):
+    from repro_torch.models import shard_ctx
+
+    return contextlib.nullcontext() if tp is None else shard_ctx.tensor_parallel(tp)
+
+
+@torch.no_grad()
+def prefill_step(model, card: Mesh, params, batch: dict, *, timing=None):
+    """The reference's ``prefill_step`` as a process of ``card`` runs it
+    (the decoder family): from its parameter blocks and its rows of the
+    prompts (``batch["tokens"]``, ``(rows, S)``), each of its data shards'
+    rows in turn (an MoE layer routes them as one group), its ``model``
+    shards' heads, MLP columns, experts and vocab rows.  Returns ``(the
+    last position's logits, (rows, 1, its vocab columns); the caches, its
+    block under ``decode_state_specs(cfg, card, B, S)``)``.  ``timing``: a
+    dict that collects the model-axis collectives' seconds under
+    ``tp_s``."""
+    from repro_torch.models import transformer as tr
+
+    tokens = batch["tokens"]
+    live, tp, n = _serve_setup(model, card, params, _global_rows(card, tokens.shape[0]),
+                               tokens.shape[1], timing)
+    rows = tokens.shape[0] // n
+    logits, caches = [], []
+    with _context(tp):
+        for q in range(n):
+            hidden, cache = model.prefill(live, {"tokens": tokens[q * rows:(q + 1) * rows]})
+            logits.append(tr.unembed(model.cfg, live, hidden[:, -1:, :]))
+            caches.append(cache)
+    return _join(logits, 0), tuple(_join(c, 1) for c in zip(*caches))
+
+
+@torch.no_grad()
+def serve_step(model, card: Mesh, params, state, tokens, *, timing=None,
+               return_logits: bool = False):
+    """The reference's ``serve_step`` (one decode step and its next token)
+    as a process of ``card`` runs it (the decoder family): from its
+    parameter blocks, its block of the decode ``state`` under
+    ``launch/shardings.py::decode_state_specs`` and its rows of ``tokens``
+    ``(rows, 1)``, each of its data shards' rows in turn, its ``model``
+    shards' part of every product and its block of the cache.  Returns
+    ``(the new state block, the next tokens (rows, 1) int32)``, the argmax
+    over the vocab split along ``model``, lowest index first (and with
+    ``return_logits`` the logits' block, (rows, its vocab columns)).
+    ``timing`` as :func:`prefill_step`'s."""
+    from repro_torch.models import shard_ctx
+    from repro_torch.models.transformer import DecodeState, cache_shapes
+
+    cfg = model.cfg
+    B = _global_rows(card, tokens.shape[0])
+    S = state.cache[0].shape[2]
+    if "model" in card.axes and (cfg.mla or cfg.n_kv_heads % card.size("model")):
+        S = S // card.local("model") * card.size("model")       # the sequence is split
+    specs = shard_lib.decode_state_specs(cfg, card, B, S)
+    want = [shard_lib.block_shape(shape, card, sp)
+            for shape, sp in zip(cache_shapes(cfg, B, S), specs.cache)]
+    got = [tuple(c.shape) for c in state.cache]
+    if got != want:
+        raise ValueError(f"{cfg.name}: the state's cache blocks {got} are not the blocks "
+                         f"{want} of a ({B}, {S}) cache")
+    live, tp, n = _serve_setup(model, card, params, B, S, timing)
+    rows = tokens.shape[0] // n
+    caches, lens, nxt, logits = [], [], [], []
+    with _context(tp):
+        for q in range(n):
+            r = slice(q * rows, (q + 1) * rows)
+            st = DecodeState(tuple(c[:, r] for c in state.cache), state.cache_len[r])
+            st, lg = model.decode_step(live, st, tokens[r])
+            vocab = shard_ctx.split("vocab")
+            nxt.append(vocab.argmax(vocab.shards(lg, -1)))
+            caches.append(st.cache)
+            lens.append(st.cache_len)
+            logits.append(lg)
+    new = DecodeState(tuple(_join(c, 1) for c in zip(*caches)), _join(lens, 0))
+    out = (new, _join(nxt, 0).to(torch.int32)[:, None])
+    return out + (_join(logits, 0),) if return_logits else out
 
 
 def _train_step(model, ocfg, card: Mesh, batch: dict):

@@ -27,8 +27,8 @@ counterpart here.  The record types and their meanings are the reference's:
   ops it runs inside count nothing, so a step counts the same on the CPU
   (the plain versions) as on the card.
 * **Collectives**: planned (a card of a 256-card mesh is one process
-  here, whose collectives move nothing): :func:`mesh_step_collectives` and
-  :func:`index_merge_collectives` add up, in the reference's operand-bytes
+  here, whose collectives move nothing): :func:`mesh_step_collectives`,
+  :func:`serve_step_collectives` and :func:`index_merge_collectives` add up, in the reference's operand-bytes
   convention and under its five type names, what the port's collectives
   (``distributed/collectives.py``, whose ``COUNTS`` counts the same at run
   time) hand over for one step a process.  A collective's operand and
@@ -282,10 +282,13 @@ def _moe_layers(cfg) -> int:
     return cfg.n_layers // cfg.moe_every if cfg.moe_every > 1 else cfg.n_layers
 
 
-def _tp_sums(plan: CollectivePlan, cfg, split, mesh, rows: int, S: int, S_enc: int = 0) -> None:
+def _tp_sums(plan: CollectivePlan, cfg, split, mesh, rows: int, S: int, S_enc: int = 0, *,
+             train: bool = True) -> None:
     """One data shard's model-axis sums (``shard_ctx``'s ``enter`` and
     ``leave``, ``collectives.ordered_sum``; the vocab max) in a forward and
-    backward of the tensor-parallel step: the embedding's rows; each split
+    backward of the tensor-parallel step, or with ``train=False`` in the
+    serve step's forward (each region's sums once, none of the backward's,
+    the recompute's or the loss's): the embedding's rows; each split
     region of a layer summed in the forward, again in its checkpointed
     recompute, and its input gradient in the backward — the decoder's
     attention and MLP (an MoE layer's experts and shared expert, and its
@@ -307,7 +310,7 @@ def _tp_sums(plan: CollectivePlan, cfg, split, mesh, rows: int, S: int, S_enc: i
                      local * nbytes * mesh.procs[mesh.axes.index("model")])
 
     act = rows * S * cfg.d_model * item
-    passes = 3 if cfg.remat else 2
+    passes = (3 if cfg.remat else 2) if train else 1
     if "vocab" in split:
         ordered(act)
     if cfg.family == "decoder":
@@ -319,7 +322,8 @@ def _tp_sums(plan: CollectivePlan, cfg, split, mesh, rows: int, S: int, S_enc: i
                 ordered(act, layers * passes)
         for _ in range(n_moe):         # the experts' region, and the gate values' gradient
             ordered(act, passes)
-            ordered(rows * S * cfg.top_k * 4)
+            if train:
+                ordered(rows * S * cfg.top_k * 4)
     elif cfg.family == "rwkv6":
         for group in ("heads", "mlp"):
             if group in split:
@@ -341,7 +345,7 @@ def _tp_sums(plan: CollectivePlan, cfg, split, mesh, rows: int, S: int, S_enc: i
                 ordered(act, cfg.n_layers * passes * (2 if group == "heads" else 1))
         if "heads" in split:
             ordered(enc)
-    if "vocab" in split:
+    if "vocab" in split and train:
         C = min(cfg.logits_chunk, S)
         for _ in range(-(-S // C)):
             for _ in range(2):                   # the forward and the recompute
@@ -377,11 +381,7 @@ def mesh_step_collectives(model, mesh, *, microbatches: int = 1,
     split, partial = tp or ((), ())
     if tp and batch is None:
         raise ValueError(f"{cfg.name}: the tensor-parallel step's plan needs the batch's (B, S)")
-    whole = transformer.tp_gathered(cfg, model.specs(mesh)) if tp else frozenset()
-    for path, t in shapes.items():
-        plan.gather("param_gather", block_shape(t.shape, mesh, specs[path]),
-                    t.element_size(), mesh, specs[path],
-                    keep=("model",) if tp and path not in whole else ())
+    _param_gather(plan, model, mesh, tp)
     layers = _moe_layers(cfg)
     for _ in range(microbatches):
         for _ in range(layers):
@@ -406,6 +406,75 @@ def mesh_step_collectives(model, mesh, *, microbatches: int = 1,
     if cfg.moe:
         plan.gather("loss_sums", grid + [1], 4, mesh, P(*dp))
     plan.trips.update(microbatches=microbatches, moe_layers=layers)
+    return plan
+
+
+def _param_gather(plan: CollectivePlan, model, mesh, tp) -> None:
+    """The parameters' gather of a mesh step: along the data axes only under
+    the tensor-parallel plan ``tp`` (the leaves of
+    ``transformer.tp_gathered`` along ``model`` too), else whole."""
+    from repro_torch.models import transformer
+
+    specs = dict(tree_leaves(model.specs(mesh)))
+    whole = transformer.tp_gathered(model.cfg, model.specs(mesh)) if tp else frozenset()
+    for path, t in tree_leaves(model.shapes()):
+        plan.gather("param_gather", block_shape(t.shape, mesh, specs[path]),
+                    t.element_size(), mesh, specs[path],
+                    keep=("model",) if tp and path not in whole else ())
+
+
+def serve_step_collectives(model, mesh, kind: str, *, batch: tuple[int, int]
+                           ) -> CollectivePlan:
+    """One call of the decoders' split serve step (``launch/dryrun.py``'s
+    ``prefill_step`` for ``kind`` ``"prefill"``, ``serve_step`` for
+    ``"decode"``) on ``mesh``, a process, for a ``batch`` of ``(B, S)``
+    (the prompts' length, or the decode cache's): the parameters' gather
+    (as :func:`mesh_step_collectives`'s), and for each of this process's
+    data shards the forward's model-axis sums (:func:`_tp_sums` at ``rows ×
+    S`` tokens, or ``rows × 1`` a decode step).  A decode step whose cache
+    splits along ``model`` by its sequence adds, each layer, the gather of
+    the local shards' queries along ``model`` (where the heads split; MLA's
+    absorbed queries and their rotary part), the merge's maximum of the
+    scores and its ordered sum of the rescaled ``Σ exp`` and values
+    (float32, float64 for a float64 model), and the argmax's two maxima
+    (its value, its negated index, int64) where the vocab splits."""
+    from repro_torch.launch.shardings import decode_state_specs
+    from repro_torch.models import transformer
+
+    cfg = model.cfg
+    plan = CollectivePlan()
+    tp = transformer.tp_plan(cfg, model.specs(mesh), mesh)
+    _param_gather(plan, model, mesh, tp)
+    if not tp:
+        return plan
+    split = tp[0]
+    B, S = batch
+    dp = tuple(a for a in ("pod", "data") if a in mesh.axes)
+    n = math.prod(mesh.local(a) for a in dp)
+    rows = B // math.prod(mesh.size(a) for a in dp)
+    seq = dim_axes(decode_state_specs(cfg, mesh, B, S).cache[0], 5)[2]
+    local, across = mesh.local("model"), spans(mesh, "model")
+    procs = mesh.procs[mesh.axes.index("model")]
+    item = torch.empty((), dtype=cfg.dtype).element_size()
+    acc = torch.empty((), dtype=torch.promote_types(cfg.dtype, torch.float32)).element_size()
+    H = cfg.n_heads
+    for _ in range(n):
+        _tp_sums(plan, cfg, split, mesh, rows, S if kind == "prefill" else 1, train=False)
+        if kind == "prefill":
+            continue
+        if "model" in seq:
+            q_width, v_width = ((cfg.kv_lora_rank + cfg.rope_head_dim, cfg.kv_lora_rank)
+                                if cfg.mla else (cfg.hd, cfg.hd))
+            for _ in range(cfg.n_layers):
+                if "heads" in split:
+                    nbytes = local * rows * H // mesh.size("model") * q_width * item
+                    plan.add("all-gather", "serve_merge", nbytes, across, nbytes * procs)
+                plan.add("all-reduce", "serve_merge", rows * H * acc, across, rows * H * acc)
+                nbytes = local * rows * H * (1 + v_width) * acc
+                plan.add("all-reduce", "serve_merge", nbytes, across, nbytes * procs)
+        if "vocab" in split:
+            for nbytes in (rows * acc, rows * 8):
+                plan.add("all-reduce", "serve_argmax", nbytes, across, nbytes)
     return plan
 
 

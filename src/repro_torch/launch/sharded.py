@@ -29,7 +29,11 @@ one-device step, a rank's blocks at a time, or against a one-device step
 that :func:`tp_reference` ran before the ranks started (where the card
 cannot hold both); :func:`tp_check_cells` runs it for several archs in one
 start of the ranks, and :func:`tp_check_all` runs their one-device steps
-first, then those ranks.
+first, then those ranks.  :func:`serve_check_all` does the same for the
+decoders' split prefill and decode (``launch/dryrun.py``'s
+``prefill_step``/``serve_step``): each cell's one-device run
+(:func:`serve_reference`) and its split with every shard in this
+process first, then :func:`serve_check_rank` in the ranks.
 """
 from __future__ import annotations
 
@@ -776,3 +780,294 @@ def ep_inputs(cfg, B: int, S: int, seed: int, dev):
     x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev).to(cfg.dtype)
     g = torch.randn(x.shape, generator=gen, device=dev).to(cfg.dtype)
     return layer, x, g
+
+
+# ---------------------------------------------------------------------------
+# The decoders' split prefill and decode
+# ---------------------------------------------------------------------------
+def serve_inputs(cfg, params: dict, dev):
+    """A serve check's inputs, drawn on the CPU from ``params["seed"]``:
+    ``params["batch"]`` prompts of ``params["prompt"]`` tokens, the
+    ``params["steps"]`` teacher-forced tokens of each decode step (the token
+    at the row's position, ``(steps, B, 1)``) and the rows' lengths
+    ``params["lens"]`` (each at most the prompt's: a row's decode steps
+    overwrite its positions past its length)."""
+    g = torch.Generator().manual_seed(params["seed"] + 1)
+    B, P, steps = params["batch"], params["prompt"], params["steps"]
+    tokens = torch.randint(0, cfg.vocab, (B, P + steps), generator=g, dtype=torch.int32)
+    lens = torch.tensor(params["lens"], dtype=torch.int32)
+    forced = torch.stack([tokens[torch.arange(B), (lens + i).long()][:, None]
+                          for i in range(steps)])
+    return tokens[:, :P].to(dev), forced.to(dev), lens.to(dev)
+
+
+def _padded(caches, lens, S: int):
+    """A decode state of ``S`` positions holding the prefill's ``caches``."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.transformer import DecodeState
+
+    return DecodeState(tuple(F.pad(c, (0, 0) * (c.ndim - 3) + (0, S - c.shape[2]))
+                             for c in caches), lens.clone())
+
+
+@torch.no_grad()
+def serve_one_device(model, weights, prompts, forced, lens, S: int) -> dict:
+    """The one-device prefill of ``prompts`` and the decode steps of
+    ``forced`` against an ``S``-position cache from the rows' ``lens``:
+    the prefill's last-position logits and caches, each step's logits and
+    next token (the first largest logit), the last step's caches."""
+    from repro_torch.models import transformer as tr
+
+    hidden, caches = model.prefill(weights, {"tokens": prompts})
+    out = dict(prefill_logits=tr.unembed(model.cfg, weights, hidden[:, -1:]),
+               prefill_cache=caches, logits=[], next=[])
+    state = _padded(caches, lens, S)
+    for f in forced:
+        state, logits = model.decode_step(weights, state, f)
+        out["logits"].append(logits)
+        out["next"].append(torch.argmax(logits, dim=-1).to(torch.int32)[:, None])
+    out["cache"] = state.cache
+    return out
+
+
+def serve_split(model, mesh, blocks, prompts, forced, lens, S: int, log: dict | None = None
+                ) -> dict:
+    """:func:`serve_one_device` as the split serve step runs it on
+    ``mesh`` (``launch/dryrun.py``'s ``prefill_step``, then ``serve_step``
+    a step), from this process's parameter ``blocks`` and its rows of the
+    inputs; returns its blocks of the same outputs.  The prefill's cache
+    blocks (a ``P``-position cache's) are re-cut into the ``S``-position
+    decode state's (gathered whole, padded, cut): a check
+    program's step, outside the serve step.  ``log`` collects the prefill's
+    and each decode step's seconds, model-axis seconds (``tp_s``) and
+    collective operand bytes by type."""
+    import time
+
+    from repro_torch.distributed.collectives import counts, reset_counts
+    from repro_torch.launch.dryrun import _global_rows, prefill_step, serve_step
+    from repro_torch.launch.shardings import decode_state_specs, gather_tree, shard_tree
+
+    cfg, dev = model.cfg, mesh.device
+    B, P = _global_rows(mesh, prompts.shape[0]), prompts.shape[1]
+    log = {} if log is None else log
+    log.update(seconds=[], tp_s=[], collective_bytes=[])
+
+    def timed(fn):
+        timing = {}
+        _sync(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = fn(timing)
+        _sync(dev)
+        log["seconds"].append(time.perf_counter() - t0)
+        log["tp_s"].append(timing.get("tp_s", 0.0))
+        log["collective_bytes"].append(counts())
+        return res
+
+    logits, caches = timed(lambda t: prefill_step(model, mesh, blocks, {"tokens": prompts},
+                                                  timing=t))
+    out = dict(prefill_logits=logits, prefill_cache=caches, logits=[], next=[])
+    whole = _padded(gather_tree(caches, mesh, decode_state_specs(cfg, mesh, B, P).cache),
+                    lens, S)
+    state = type(whole)(shard_tree(whole.cache, mesh, decode_state_specs(cfg, mesh, B, S).cache),
+                        lens)
+    del whole
+    for f in forced:
+        state, nxt, lg = timed(lambda t, st=state, f=f: serve_step(
+            model, mesh, blocks, st, f, timing=t, return_logits=True))
+        out["logits"].append(lg)
+        out["next"].append(nxt)
+    out["cache"] = state.cache
+    return out
+
+
+def _on_host(out: dict) -> dict:
+    return {k: ([t.cpu() for t in v] if isinstance(v, (list, tuple)) else v.cpu())
+            for k, v in out.items()}
+
+
+def serve_reference(params: dict, path, *, perturb: float | None = None) -> dict:
+    """A serve check's one-device run (:func:`serve_one_device`), in the
+    calling process before the ranks start: from ``model.init`` at
+    ``params["seed"]`` (each weight scaled by ``1 + perturb · N(0, 1)`` where
+    ``perturb`` is given, a generator seeded from ``seed`` + 1), its outputs
+    written to ``path`` on the host; returns its seconds and its peak memory
+    (the weights held included; ``None`` off the card)."""
+    import time
+
+    from repro_torch.kernels.util import resolve_device
+
+    dev = resolve_device(params["device"])
+    model = tp_model(params, params["dtype"])
+    weights = model.init(torch.Generator(device=dev).manual_seed(params["seed"]))
+    if perturb:
+        g = torch.Generator(device=dev).manual_seed(params["seed"] + 1)
+        for _, t in tree_leaves(weights):
+            t.mul_(1 + perturb * torch.randn(t.shape, generator=g, dtype=t.dtype, device=dev))
+    prompts, forced, lens = serve_inputs(model.cfg, params, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = serve_one_device(model, weights, prompts, forced, lens, params["cache"])
+    _sync(dev)
+    rec = dict(seconds=time.perf_counter() - t0,
+               peak_memory_allocated=(torch.cuda.max_memory_allocated(dev)
+                                      if dev.type == "cuda" else None))
+    torch.save(_on_host(out), path)
+    del weights, out
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _serve_run(params: dict, mesh, log: dict) -> dict:
+    """:func:`serve_split` of a serve check on ``mesh``: the weights drawn
+    whole and cut to this process's blocks, its rows of the inputs; its
+    peak memory from the blocks held on (``None`` off the card)."""
+    from repro_torch.launch.shardings import batch_shardings, shard_leaf, shard_tree
+
+    dev = mesh.device
+    model = tp_model(params, params["dtype"])
+    full = model.init(torch.Generator(device=dev).manual_seed(params["seed"]))
+    blocks = shard_tree(full, mesh, model.specs(mesh))
+    del full
+    bspec = batch_shardings(mesh).spec
+    prompts, forced, lens = serve_inputs(model.cfg, params, dev)
+    prompts, lens = shard_leaf(prompts, mesh, bspec), shard_leaf(lens, mesh, bspec)
+    forced = torch.stack([shard_leaf(f, mesh, bspec) for f in forced])
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    out = serve_split(model, mesh, blocks, prompts, forced, lens, params["cache"], log)
+    log["peak_memory_allocated"] = (torch.cuda.max_memory_allocated(dev)
+                                    if dev.type == "cuda" else None)
+    log["param_bytes"] = sum(t.numel() * t.element_size() for _, t in tree_leaves(blocks))
+    return out
+
+
+def serve_check_rank(rank: int, world: int, out_dir: str, cells: list) -> None:
+    """One rank of :func:`serve_check_all`: each cell's split run
+    (:func:`_serve_run`) on its mesh in turn, its blocks of the outputs to
+    ``out_dir/i/rank{rank}.pt`` and its log to ``out_dir/i/rank{rank}.json``
+    for cell ``i``."""
+    import json
+
+    from repro_torch.kernels.util import resolve_device
+
+    for i, params in enumerate(cells):
+        torch.set_num_threads(params.get("threads") or max(1, (os.cpu_count() or 1) // world))
+        dev = resolve_device(params["device"])
+        mesh = make_mesh(params["mesh"], ("data", "model"), device=dev)
+        log = {}
+        out = _serve_run(params, mesh, log)
+        work = pathlib.Path(out_dir) / str(i)
+        torch.save(_on_host(out), work / f"rank{rank}.pt")
+        (work / f"rank{rank}.json").write_text(json.dumps(log))
+        del out
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def _rel(got, want) -> float:
+    """``max |got − want| / max |want|`` over the tensors of two lists."""
+    num = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+    return num / max(float(w.double().abs().max()) for w in want)
+
+
+def _serve_parts(out: dict) -> dict:
+    """A serve run's outputs in the groups a check compares."""
+    return dict(prefill_logits=[out["prefill_logits"]], prefill_cache=list(out["prefill_cache"]),
+                logits=list(out["logits"]), cache=list(out["cache"]))
+
+
+def _serve_specs(model, mesh, params: dict) -> dict:
+    """Each output's spec (as :func:`_serve_parts` groups them) on ``mesh``:
+    the rows along the data axes, the logits' vocab columns along ``model``
+    where the vocab splits, the caches by ``decode_state_specs``."""
+    from repro_torch.launch.shardings import decode_state_specs
+    from repro_torch.models.common import P
+
+    cfg, B = model.cfg, params["batch"]
+    spec_of = dict(tree_leaves(model.specs(mesh)))
+    vocab = spec_of[("embed",)][0] if cfg.tie_embeddings else spec_of[("unembed",)][1]
+    cache = list(decode_state_specs(cfg, mesh, B, params["cache"]).cache)
+    rows = cache[0][1]
+    return dict(prefill_logits=[P(rows, None, vocab)],
+                prefill_cache=list(decode_state_specs(cfg, mesh, B, params["prompt"]).cache),
+                logits=[P(rows, vocab)] * params["steps"], cache=cache,
+                next=[P(rows, None)] * params["steps"])
+
+
+def serve_check_all(cells: list, work, world: int = 2, timeout: float = 120.0,
+                    start: str = "forkserver") -> list[dict]:
+    """Hold each of ``cells`` (a serve check's ``params``: ``arch``,
+    ``reduced``, ``layers``, ``dtype``, ``mesh``, ``batch``, ``prompt``,
+    ``cache``, ``steps``, ``lens``, ``seed``, ``device``, ``threads``) to its
+    one-device run.  In this process first, for each cell: the one-device
+    run (:func:`serve_reference`) and the split run with every shard in
+    this one process; then :func:`serve_check_rank` in ``world`` ranks over
+    gloo (forked from the server, :func:`start_forkserver`, or spawned).
+    ``work`` is a directory that does not exist yet.  Returns a record a
+    cell: its ``params``; the largest ``max |split − one device| / max
+    |one device|`` over the ranks of the prefill's logits and caches, the
+    decode steps' logits and the last caches (``rel``); whether every
+    rank's next tokens equal the one-device run's (``next_equal``), whether
+    every rank's blocks equal the one-process split run's bit for bit
+    (``bitwise_one_process``); each rank's log (:func:`serve_split`'s, with
+    its peak memory and parameter bytes), the one-device run's record
+    (``one_device``), the one-process run's log, and the ranks' seconds
+    (``spawn_seconds``).  The one-device run routes an MoE layer's rows as
+    one group, as the split does only where ``data`` has one shard."""
+    import json
+    import time
+
+    from repro_torch.launch.mesh import Mesh, _process_grid
+    from repro_torch.launch.shardings import shard_leaf
+
+    work = pathlib.Path(work)
+    refs, ones = [], []
+    for i, params in enumerate(cells):
+        (work / str(i)).mkdir(parents=True)
+        refs.append(serve_reference(params, work / str(i) / "one_device.pt"))
+        mesh = make_mesh(params["mesh"], ("data", "model"), device=params["device"])
+        log = {}
+        torch.save(_on_host(_serve_run(params, mesh, log)), work / str(i) / "one_process.pt")
+        ones.append(log)
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spawn_ranks(serve_check_rank, world, (str(work), cells), init_file=work / "init",
+                timeout=timeout, start=start)
+    spawn_s = time.perf_counter() - t0
+    out = []
+    for i, params in enumerate(cells):
+        model = tp_model(params, params["dtype"])
+        one = torch.load(work / str(i) / "one_device.pt")
+        single = torch.load(work / str(i) / "one_process.pt")
+        procs = _process_grid(params["mesh"], world)
+        rel = {k: 0.0 for k in ("prefill_logits", "prefill_cache", "logits", "cache")}
+        next_equal, bitwise, logs = True, True, []
+        for r in range(world):
+            coords = tuple(int(c) for c in np.unravel_index(r, procs))
+            mesh = Mesh(tuple(params["mesh"]), ("data", "model"), torch.device("cpu"), procs,
+                        coords, {})
+            got = torch.load(work / str(i) / f"rank{r}.pt")
+            specs = _serve_specs(model, mesh, params)
+            cut = lambda whole, key: [shard_leaf(t, mesh, sp)   # noqa: E731
+                                      for t, sp in zip(whole, specs[key])]
+            for k, parts in _serve_parts(got).items():
+                rel[k] = max(rel[k], _rel(parts, cut(_serve_parts(one)[k], k)))
+                bitwise &= all(torch.equal(a, b) for a, b in
+                               zip(parts, cut(_serve_parts(single)[k], k)))
+            next_equal &= all(torch.equal(a, b) for a, b in zip(got["next"],
+                                                               cut(one["next"], "next")))
+            bitwise &= all(torch.equal(a, b) for a, b in zip(got["next"],
+                                                             cut(single["next"], "next")))
+            logs.append(json.loads((work / str(i) / f"rank{r}.json").read_text()))
+        out.append(dict(params=params, rel=rel, next_equal=next_equal,
+                        bitwise_one_process=bitwise, logs=logs, one_device=refs[i],
+                        one_process=ones[i], spawn_seconds=spawn_s))
+    return out

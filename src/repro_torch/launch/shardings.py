@@ -10,7 +10,12 @@ axes, the cache's **sequence** axis takes them) — and the token spec.  A
 NamedSharding`.
 
 What ``jax.device_put`` under a ``NamedSharding`` does, the port does with
-:func:`shard_leaf` and :func:`gather_leaf`.  A process holds
+:func:`shard_leaf` and :func:`gather_leaf` (:func:`shard_tree` and
+:func:`gather_tree` for a parameter tree or a decode state).  The
+decoders' split serve step (``launch/dryrun.py``) holds a process's block
+of the decode cache under :func:`decode_state_specs`; where the cache's
+sequence is split, :func:`sequence_block` gives the offset and length of
+the process's positions.  A process holds
 ``Mesh.local(axis)`` consecutive shards of each axis, so its **block** of a
 leaf holds, along each dimension, that dimension's shards this process
 holds, in ascending order, one after another.  A dimension split over two
@@ -48,7 +53,7 @@ from repro_torch.distributed.collectives import (
     all_gather, ordered_sum, ring_all_reduce, ring_reduce_scatter,
 )
 from repro_torch.models.common import (
-    ModelConfig, NamedSharding, P, PartitionSpec, batch_spec, mesh_shape, tree_leaves,
+    ModelConfig, NamedSharding, P, PartitionSpec, batch_spec, mesh_shape,
 )
 
 
@@ -148,6 +153,23 @@ def decode_state_specs(cfg: ModelConfig, mesh, B: int, S: int):
         return encdec.EncDecState((kv, kv), (xkv, xkv), blen)
 
     raise ValueError(cfg.family)
+
+
+def sequence_block(cfg: ModelConfig, mesh, B: int, S: int) -> tuple[int, int]:
+    """``(offset, length)`` of this process's block of the decode cache's
+    sequence under :func:`decode_state_specs` (``(0, S)`` where the
+    sequence is not split).  Raises ``ValueError`` where the process's
+    shards of the sequence's axes are not consecutive positions."""
+    spec = decode_state_specs(cfg, mesh, B, S).cache[0]
+    axes = dim_axes(spec, len(spec))[2]
+    if not axes:
+        return 0, S
+    shards = mesh.local_shards(axes)
+    if shards != list(range(shards[0], shards[0] + len(shards))):
+        raise ValueError(f"the process's shards {shards} of the sequence over {axes} are not "
+                         "consecutive")
+    n = S // math.prod(mesh.size(a) for a in axes)
+    return shards[0] * n, len(shards) * n
 
 
 def map_specs(fn, tree):
@@ -297,20 +319,30 @@ def reduce_blocks(contribs: torch.Tensor, mesh, spec, axes: Sequence[str], *,
 
 
 def shard_tree(tree, mesh, specs):
-    """:func:`shard_leaf` of every leaf of a tree of nested dicts."""
-    spec_of = dict(tree_leaves(specs))
-    return _map_paths(lambda path, leaf: shard_leaf(leaf, mesh, spec_of[path]), tree)
+    """:func:`shard_leaf` of every leaf of a tree of nested dicts, tuples
+    and named tuples (a parameter tree, or a decode state under
+    :func:`decode_state_specs`), ``specs`` a tree of the same shape."""
+    return _map_paths(lambda path, leaf: shard_leaf(leaf, mesh, _at(specs, path)), tree)
 
 
 def gather_tree(tree, mesh, specs, axes: Sequence[str] | None = None, whole=()):
-    """:func:`gather_leaf` of every leaf of a tree of nested dicts, along
-    ``axes``; the leaves whose paths are in ``whole`` along every axis."""
-    spec_of = dict(tree_leaves(specs))
-    return _map_paths(lambda path, leaf: gather_leaf(leaf, mesh, spec_of[path],
+    """:func:`gather_leaf` of every leaf of a tree as :func:`shard_tree`
+    takes it, along ``axes``; the leaves whose paths are in ``whole`` along
+    every axis."""
+    return _map_paths(lambda path, leaf: gather_leaf(leaf, mesh, _at(specs, path),
                                                      None if path in whole else axes), tree)
+
+
+def _at(tree, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def _map_paths(fn, tree, path: tuple = ()):
     if isinstance(tree, dict):
         return {k: _map_paths(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        vals = [_map_paths(fn, v, path + (i,)) for i, v in enumerate(tree)]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
     return fn(path, tree)

@@ -5,7 +5,8 @@
 * the **local** path (``_moe_ffn_local``): the dispatch grouped by data
   shard, ``G = shard_ctx.dp_size()`` groups (1 without an active mesh),
   each group with its own capacity; the path of every serve call and of
-  the one-device train step;
+  the one-device train step (under the serve step's tensor-parallel
+  context a card routes its rows as one group and computes its experts);
 * the **expert-parallel** path (``_moe_ffn_ep``), under an active mesh
   (``shard_ctx.use_mesh``) when the shapes divide (the reference's exact
   conditions): each (data, model) token shard dispatches its own tokens
@@ -182,14 +183,32 @@ def _experts(buf, w_gate, w_up, w_down, dtype):
     return torch.bmm(h, w_down)
 
 
-def _dispatch_ffn(cfg, ex, xt, gate_idx, gate_vals, C: int, offset=None):
-    """One block's dispatch, expert compute and combine: (y (T, d), the
-    assignments dropped)."""
+def _dispatch_ffn(cfg, ex, xt, gate_idx, gate_vals, C: int, assigned=None):
+    """One token block's dispatch, expert compute and combine: y (T, d).
+    ``assigned``: the block's :func:`_sorted_assignments` (made here
+    without an offset when ``None``).  Under a tensor-parallel context that
+    splits ``"expert"`` (``shard_ctx``) each local ``model`` shard
+    dispatches, computes and combines its ``E / model`` experts' slots;
+    where the experts split by their ``d_ff`` columns (``"expert_mlp"``)
+    each shard dispatches every expert's slots to its columns; the
+    partials are summed over ``model`` in shard order (a token's slots
+    summed within each shard, the shards added in order)."""
     E = cfg.n_experts
-    buf, _, w_of, slot_of = _local_dispatch(xt, gate_idx, gate_vals, E, C, offset)
-    y_slots = _experts(buf, ex["w_gate"], ex["w_up"], ex["w_down"], xt.dtype)
-    dropped = torch.sum(slot_of == E * C)
-    return _combine(y_slots, w_of, slot_of, xt.dtype), dropped
+    assigned = assigned or _sorted_assignments(gate_idx, C)
+    tp = shard_ctx.split("expert")
+    by_columns = tp.mesh is None and shard_ctx.split("expert_mlp").mesh is not None
+    if by_columns:
+        tp = shard_ctx.split("expert_mlp")
+    E_loc = E if by_columns else E // tp.size
+    ws = [tp.shards(ex[k], dim) for k, dim in
+          zip(("w_gate", "w_up", "w_down"), (-1, -1, -2) if by_columns else (0, 0, 0))]
+    parts = []
+    for j, (xj, gj, wg, wu, wd) in enumerate(zip(tp.enter(xt), tp.enter(gate_vals), *ws)):
+        e0 = 0 if by_columns else tp.shard(j) * E_loc
+        buf, _, w_of, slot_of = _local_dispatch(xj, gate_idx, gj, E, C, experts=(e0, e0 + E_loc),
+                                                assigned=assigned)
+        parts.append(_combine(_experts(buf, wg, wu, wd, xt.dtype), w_of, slot_of, xt.dtype))
+    return tp.leave(parts)
 
 
 def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor):
@@ -226,7 +245,10 @@ def dropped_assignments(cfg: ModelConfig, gate_idx: torch.Tensor) -> int:
 def _moe_ffn_local(cfg: ModelConfig, p, x: torch.Tensor):
     """The local path: ``G = shard_ctx.dp_size()`` dispatch groups (1 when
     inactive or when they do not divide the tokens), each with its own
-    capacity; the aux from the means over every token."""
+    capacity; the aux from the means over every token.  The serve step
+    (``launch/dryrun.py``) runs it for a card's rows, one group, under a
+    tensor-parallel context: the routing whole (the router gathered along
+    ``model``), each local ``model`` shard its experts (:func:`_dispatch_ffn`)."""
     B, S, d = x.shape
     T = B * S
     E = cfg.n_experts
@@ -241,7 +263,7 @@ def _moe_ffn_local(cfg: ModelConfig, p, x: torch.Tensor):
 
     C = capacity(cfg, Tg)
     ys = [_dispatch_ffn(cfg, p["experts"], xt[g * Tg:(g + 1) * Tg],
-                        gate_idx[g * Tg:(g + 1) * Tg], gate_vals[g * Tg:(g + 1) * Tg], C)[0]
+                        gate_idx[g * Tg:(g + 1) * Tg], gate_vals[g * Tg:(g + 1) * Tg], C)
           for g in range(G)]
     y = ys[0] if G == 1 else torch.cat(ys)
 
@@ -337,22 +359,7 @@ def _moe_ffn_data_shard(cfg: ModelConfig, p, x: torch.Tensor, shard):
     aux = E * torch.sum(frac_g * (mean_p * (T / shard.tokens))) * cfg.router_aux_weight
     C = capacity(cfg, shard.tokens)
     assigned = _sorted_assignments(gate_idx, C, offset)
-    # a shard's E / model experts, or (where E does not divide model) every
-    # expert's slice of the d_ff columns
-    tp = shard_ctx.split("expert")
-    by_columns = tp.mesh is None and shard_ctx.split("expert_mlp").mesh is not None
-    if by_columns:
-        tp = shard_ctx.split("expert_mlp")
-    E_loc = E if by_columns else E // tp.size
-    ws = [tp.shards(p["experts"][k], dim) for k, dim in
-          zip(("w_gate", "w_up", "w_down"), (-1, -1, -2) if by_columns else (0, 0, 0))]
-    parts = []
-    for j, (xj, gj, wg, wu, wd) in enumerate(zip(tp.enter(xt), tp.enter(gate_vals), *ws)):
-        e0 = 0 if by_columns else tp.shard(j) * E_loc
-        buf, _, w_of, slot_of = _local_dispatch(xj, gate_idx, gj, E, C, experts=(e0, e0 + E_loc),
-                                                assigned=assigned)
-        parts.append(_combine(_experts(buf, wg, wu, wd, xt.dtype), w_of, slot_of, xt.dtype))
-    y = tp.leave(parts)
+    y = _dispatch_ffn(cfg, p["experts"], xt, gate_idx, gate_vals, C, assigned)
     if record:                                       # the assignments past capacity
         shard.dropped.append(torch.sum(~assigned[-1]))
     if cfg.n_shared_experts:

@@ -57,6 +57,18 @@ another within each region, each on its own tensors: no threads (an
 autograd backward on the card runs every thread's nodes on one worker
 thread, where a collective could deadlock).
 
+**Serving** (``launch/dryrun.py``'s ``prefill_step`` and ``serve_step``,
+the decoder family) runs the same split products under a context whose
+``split`` may also name ``"sequence"``: the decode cache's sequence is
+split along ``model`` (where the kv heads do not divide it, and for MLA's
+latent cache), each local shard holding its block of positions of every
+kv head.  A decode step then gathers the queries of every head along
+``model`` (:meth:`TensorParallel.gather`), scores them against each
+shard's positions and merges the shards' partial softmaxes
+(:meth:`TensorParallel.merge`); the next token is the argmax over the
+vocab split along ``model`` (:meth:`TensorParallel.argmax`).  Both end in
+``ordered_sum`` or a maximum, so 1, 2 or 4 processes give the same bits.
+
 Without a context (or for a group it does not split), :func:`split`
 returns :data:`WHOLE`, one shard covering everything: ``enter`` gives
 ``(x,)``, ``leave`` its one part, ``shards`` and ``copies`` the leaf
@@ -130,6 +142,8 @@ def constrain(x, dims: Iterable, *, divisible: bool = True):
 # Tensor parallelism
 # ---------------------------------------------------------------------------
 GROUPS = ("heads", "kv_heads", "ssm_heads", "mlp", "vocab", "expert", "expert_mlp")
+# the serve step's decode cache split along model by its sequence (not a product group)
+SEQUENCE = "sequence"
 
 
 @contextlib.contextmanager
@@ -202,6 +216,57 @@ class TensorParallel:
             return out
         with self.timed("tp_s"):
             return all_reduce_max(out, self.mesh, "model")
+
+    def gather(self, parts, dim: int) -> torch.Tensor:
+        """Every ``model`` shard's part concatenated along ``dim`` in shard
+        order, from the local shards' ``parts`` (no gradient; one
+        all-gather of the stacked parts)."""
+        from repro_torch.distributed.collectives import all_gather
+
+        if self.mesh is None:
+            (out,) = parts
+            return out
+        stacked = torch.stack([p.detach() for p in parts])
+        with self.timed("tp_s"):
+            every = all_gather(stacked, self.mesh, "model").flatten(0, 1)   # (size, ...)
+        return torch.cat(list(every.unbind(0)), dim=dim)
+
+    def merge(self, parts) -> torch.Tensor:
+        """The attention output from each local shard's partial softmax over
+        its block of positions, ``(m, l, acc)``: the row maximum ``m``
+        (``-inf`` where the block holds no valid position), ``l = Σ exp(s −
+        m)`` and ``acc = Σ exp(s − m) · v`` (last dimension the values').
+        The maximum over every ``model`` shard, each shard's ``l`` and
+        ``acc`` rescaled to it, and their :meth:`sum` in shard order; then
+        ``acc / l``."""
+        m = self.max([p[0] for p in parts])
+        m_safe = torch.where(torch.isfinite(m), m, 0.0)
+        scaled = []
+        for mj, lj, aj in parts:
+            c = torch.where(torch.isfinite(mj), torch.exp(mj - m_safe), 0.0)
+            scaled.append(torch.cat([(lj * c)[..., None], aj * c[..., None]], dim=-1))
+        total = scaled[0] if self.mesh is None else self.sum(torch.stack(scaled))
+        return total[..., 1:] / total[..., :1].clamp_min(1e-30)
+
+    def argmax(self, parts) -> torch.Tensor:
+        """The index of the largest entry over the last dimension split along
+        ``model`` (each local shard's part its block of the columns, all of
+        equal width), the lowest index among equal values, as
+        ``torch.argmax`` keeps the first: the maximum over every shard, then
+        the least global index among the shards that hold it (a maximum of
+        the negated indices).  int64, no gradient."""
+        if self.mesh is None:
+            (out,) = parts
+            return torch.argmax(out, dim=-1)
+        width = parts[0].shape[-1]
+        # exact in float32 for bf16 and float32 logits; float64 stays float64
+        vals = [p.detach().to(torch.promote_types(p.dtype, torch.float32)) for p in parts]
+        best = [v.max(dim=-1) for v in vals]
+        m = self.max([b.values for b in best])
+        big = torch.iinfo(torch.int64).max
+        cand = [torch.where(b.values == m, b.indices + self.shard(j) * width, big)
+                for j, b in enumerate(best)]
+        return -self.max([-c for c in cand])
 
     def sum(self, stacked: torch.Tensor) -> torch.Tensor:
         """:func:`~repro_torch.distributed.collectives.ordered_sum` over

@@ -163,8 +163,14 @@ def tp_plan(cfg: ModelConfig, specs, mesh) -> tuple[frozenset, frozenset] | None
     :func:`tp_gathered`), or where ``E`` does not divide ``model`` and the
     specs split each expert's ``d_ff`` columns, along those (group
     ``"expert_mlp"``), as XLA's partitioner serves that spec; experts split
-    along neither are a spec it cannot serve.  Raises ``ValueError``
-    naming a leaf whose spec the tensor-parallel path cannot serve."""
+    along neither are a spec it cannot serve.  The decoders' serve step
+    (``launch/dryrun.py``'s ``prefill_step``/``serve_step``) splits the
+    same groups: ``"heads"`` (with ``"kv_heads"`` where they divide),
+    ``"mlp"`` (the shared expert's too), ``"vocab"`` (the embedding rows and
+    the logits' columns) and ``"expert"``/``"expert_mlp"``, the router
+    gathered whole; it adds ``"sequence"`` where its cache splits along
+    ``model`` by position.  Raises ``ValueError`` naming a leaf whose spec
+    the tensor-parallel path cannot serve."""
     if "model" not in mesh.axes or mesh.size("model") == 1:
         return None
     if cfg.family != "decoder":
@@ -284,6 +290,11 @@ def block_train(cfg: ModelConfig, p_l, x, positions):
 
 
 def block_decode(cfg: ModelConfig, p_l, x, positions, cache_l, cache_len):
+    """One decoder block, one step against its cache: (x, aux, new cache).
+    Under the serve step's tensor-parallel context ``cache_l`` is the
+    process's block of the layer's cache (``attention``'s module
+    docstring) and the attention and FFN compute its shards' heads,
+    columns and experts."""
     h = rms_norm(x, p_l["ln1"], cfg.norm_eps)
     if cfg.mla:
         a, new_cache = attn.mla_attend_decode(cfg, p_l["attn"], h, positions, cache_l, cache_len)
@@ -353,6 +364,9 @@ def forward(cfg: ModelConfig, params, tokens, *, embeds=None, collect_cache=Fals
 
 
 def unembed(cfg: ModelConfig, params, h):
+    """The logits of ``h``: every vocab column, or under a tensor-parallel
+    context that splits ``"vocab"`` the columns of the process's block of
+    ``unembed`` (``embed``'s rows where tied), its local shards' in order."""
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     return h @ w
 
@@ -433,29 +447,38 @@ class DecodeState(NamedTuple):
     cache_len: torch.Tensor     # (B,) int32
 
 
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> tuple[tuple[int, ...], ...]:
+    """The shapes of the decode cache's two leaves: (L, B, S, KV, hd) keys
+    and values, or MLA's latent (L, B, S, r) and rotary (L, B, S, rd)."""
+    L = cfg.n_layers
+    if cfg.mla:
+        return (L, batch, max_len, cfg.kv_lora_rank), (L, batch, max_len, cfg.rope_head_dim)
+    return ((L, batch, max_len, cfg.n_kv_heads, cfg.hd),) * 2
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *, device=None):
     """An empty decode cache on ``device`` (``None`` = the card)."""
     dev = resolve_device(device)
     dtype = dtype or cfg.dtype
-    L = cfg.n_layers
-    if cfg.mla:
-        cache = (torch.zeros((L, batch, max_len, cfg.kv_lora_rank), dtype=dtype, device=dev),
-                 torch.zeros((L, batch, max_len, cfg.rope_head_dim), dtype=dtype, device=dev))
-    else:
-        kv_shape = (L, batch, max_len, cfg.n_kv_heads, cfg.hd)
-        cache = (torch.zeros(kv_shape, dtype=dtype, device=dev),
-                 torch.zeros(kv_shape, dtype=dtype, device=dev))
+    cache = tuple(torch.zeros(s, dtype=dtype, device=dev)
+                  for s in cache_shapes(cfg, batch, max_len))
     return DecodeState(cache, torch.zeros((batch,), dtype=torch.int32, device=dev))
 
 
 def prefill(cfg: ModelConfig, params, tokens, *, embeds=None):
-    """Forward over the prompt; returns the hidden states and the caches."""
+    """Forward over the prompt; returns the hidden states and the caches.
+    Under the serve step's tensor-parallel context the caches are the
+    process's block in ``launch/shardings.py::decode_state_specs``'s
+    layout (its kv heads, or its blocks of positions of every kv head)."""
     hidden, _, caches = forward(cfg, params, tokens, embeds=embeds, collect_cache=True)
     return hidden, caches
 
 
 def decode_step(cfg: ModelConfig, params, state: DecodeState, tokens):
-    """One decode step for the whole batch: tokens (B, 1) -> logits (B, V)."""
+    """One decode step for the whole batch: tokens (B, 1) -> logits (B, V).
+    Under the serve step's tensor-parallel context ``state`` holds the
+    process's cache block and the logits are its vocab columns
+    (:func:`unembed`)."""
     x = embed_tokens(cfg, params, tokens)
     positions = state.cache_len[:, None]
     caches = []

@@ -4,13 +4,23 @@
 The reference's side runs once, in one subprocess with 4 fake CPU devices
 (``tests/test_torch_ep.py``'s way), started before the port's side runs
 here: it lowers and compiles a reduced dense (qwen1.5-4b) and a reduced MoE
-(qwen3-moe) train cell on a (2, 2) and on a (2, 1) host mesh, a reduced
-encoder-decoder (seamless-m4t) train cell on (2, 2), and a reduced index
-cell (n = 4,096, d = 32) on (2, 2), and reports each cell's
+(qwen3-moe) train cell on a (2, 2) and on a (2, 1) host mesh, their
+prefill and decode cells on (2, 2), a reduced encoder-decoder
+(seamless-m4t) train cell on (2, 2), and a reduced index cell (n = 4,096,
+d = 32) on (2, 2), and reports each cell's
 ``memory_analysis().argument_size_in_bytes`` and ``analyze_hlo`` FLOPs.
 
 * The card's argument bytes equal the reference's exactly, for the four
-  cells on (2, 2).
+  train and index cells and the four prefill and decode cells on (2, 2).
+* The prefill and decode cells on (2, 2) (the port's split serve step,
+  ``dryrun.prefill_step``/``serve_step``): the dense cells' FLOPs within
+  5 % of the reference's; the MoE prefill cell's after a stated term (the
+  port's card routes its rows as one group with that group's capacity,
+  where the reference's expert-parallel path gives each device's token
+  shard its own); the MoE decode cell's with none (both take the local
+  path, one group a data shard).  Every decoder's reduced serve cell on
+  (1, 4) gathers no parameter along ``model`` but the router and no decode
+  state, and its counted collectives are its plan.
 * The train cells' FLOPs on (2, 1) (no model split: both packages compute
   the same products a device) lie within 5 % of the reference's, and the
   dense cell's on (2, 2), where both split the products over ``model``
@@ -57,6 +67,7 @@ TIMEOUT = 240
 ARCHS = ("qwen1.5-4b", "qwen3-moe-235b-a22b")
 SPLIT = ("seamless-m4t-medium",)      # a family outside the decoder, its (2, 2) cell only
 TRAIN = dict(seq=16, batch=4)
+SERVE = dict(prefill_32k=("prefill", 16, 4), decode_32k=("decode", 16, 4))   # kind, S, B
 INDEX = dict(n_global=4096, dim=32, m_deg=16, ef=16, nq=16)
 
 REFERENCE = r"""
@@ -69,12 +80,14 @@ from repro.launch.mesh import make_mesh
 from repro.models import shard_ctx
 
 dryrun.SHAPES = {"train_4k": registry.ShapeSpec("train_4k", TRAIN["seq"], TRAIN["batch"],
-                                                "train")}
+                                                "train"),
+                 **{n: registry.ShapeSpec(n, s, b, k) for n, (k, s, b) in SERVE.items()}}
 cfgs = {a: dataclasses.replace(registry.get_arch(a).reduced, n_layers=1) for a in ARCHS + SPLIT}
 dryrun.get_arch = lambda name: types.SimpleNamespace(config=cfgs[name])
 # the index cell (the longest compile) first
-jobs = ([("index", (2, 2))] + [(a, s) for a in ARCHS for s in ((2, 2), (2, 1))]
-        + [(a, (2, 2)) for a in SPLIT])
+jobs = ([("index", (2, 2), None)] + [(a, s, "train_4k") for a in ARCHS for s in ((2, 2), (2, 1))]
+        + [(a, (2, 2), "train_4k") for a in SPLIT]
+        + [(a, (2, 2), n) for a in ARCHS for n in SERVE])
 
 
 def compiled(lo, flops: bool):
@@ -88,18 +101,19 @@ def compiled(lo, flops: bool):
 # each cell compiles in a thread while the next one lowers
 with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
     futures = []
-    for name, shape in jobs:
+    for name, shape, cell in jobs:
         mesh = make_mesh(shape, ("data", "model"))
         if name == "index":
             fn, args, in_sh, out_sh = dryrun.build_index_cell(mesh, **INDEX)
             donate = ()
         else:
-            fn, args, in_sh, out_sh, donate = dryrun.build_cell(name, "train_4k", mesh)
+            fn, args, in_sh, out_sh, donate = dryrun.build_cell(name, cell, mesh)
         with shard_ctx.use_mesh(mesh):
             lowered = jax.jit(fn, in_shardings=in_sh, out_shardings=out_sh,
                               donate_argnums=donate).lower(*args)
         futures.append(pool.submit(compiled, lowered, name != "index"))
-    out = {f"{n}@{s[0]}x{s[1]}": f.result() for (n, s), f in zip(jobs, futures)}
+    out = {f"{n}@{s[0]}x{s[1]}" + ("" if c in (None, "train_4k") else f"/{c}"): f.result()
+           for (n, s, c), f in zip(jobs, futures)}
 print(json.dumps(out))
 """
 
@@ -122,7 +136,7 @@ def reference():
                DRYRUN_XLA_FLAGS="--xla_force_host_platform_device_count=4 "
                                 "--xla_backend_optimization_level=0")
     code = (f"ARCHS = {ARCHS!r}\nSPLIT = {SPLIT!r}\nTRAIN = {TRAIN!r}\nINDEX = {INDEX!r}\n"
-            + REFERENCE)
+            f"SERVE = {SERVE!r}\n" + REFERENCE)
     proc = subprocess.Popen([sys.executable, "-c", code], env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
     result = {}
@@ -150,10 +164,15 @@ def train_shape() -> ShapeSpec:
     return ShapeSpec("train_4k", TRAIN["seq"], TRAIN["batch"], "train")
 
 
-def port_cell(arch: str, shape) -> dict:
+def serve_shape(name: str) -> ShapeSpec:
+    kind, seq, batch = SERVE[name]
+    return ShapeSpec(name, seq, batch, kind)
+
+
+def port_cell(arch: str, shape, cell: str = "train_4k") -> dict:
     mesh = make_mesh(shape, ("data", "model"), device="meta")
-    rec = dryrun.run_cell(arch, train_shape(), "host", cfg=cfg_of(arch), mesh=mesh,
-                          verbose=False)
+    spec = train_shape() if cell == "train_4k" else serve_shape(cell)
+    rec = dryrun.run_cell(arch, spec, "host", cfg=cfg_of(arch), mesh=mesh, verbose=False)
     assert rec["ok"], rec.get("traceback")
     return rec
 
@@ -351,3 +370,84 @@ def test_encdec_train_flops_within_five_percent_on_2x2(reference):
     got -= frame_proj + w_down
     want = reference()["seamless-m4t-medium@2x2"]["flops"]
     assert abs(got - want) <= 0.05 * want, (got, want)
+
+
+# ------------------------------------------------------------ serve cells
+@pytest.mark.parametrize("cell", list(SERVE))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_argument_bytes_equal_the_reference(reference, arch, cell):
+    assert port_cell(arch, (2, 2), cell)["mem"]["argument"] == \
+        reference()[f"{arch}@2x2/{cell}"]["argument"]
+
+
+@pytest.mark.parametrize("cell", list(SERVE))
+def test_dense_serve_flops_within_five_percent_on_2x2(reference, cell):
+    """The dense prefill and decode cells on (2, 2): a card computes its
+    rows' part of its model shard's heads, MLP columns and vocab columns
+    against its block of the cache, as the reference's partitioned step
+    does."""
+    got = port_cell("qwen1.5-4b", (2, 2), cell)["flops"]
+    want = reference()[f"qwen1.5-4b@2x2/{cell}"]["flops"]
+    assert abs(got - want) <= 0.05 * want, (got, want)
+
+
+@pytest.mark.parametrize("cell", list(SERVE))
+def test_moe_serve_flops_within_five_percent_on_2x2(reference, cell):
+    """The MoE prefill and decode cells on (2, 2): a card routes its rows
+    as one group and computes its ``E / 2`` experts.  At prefill the
+    reference takes its expert-parallel path (``S`` divides ``model``): a
+    device's capacity over its ``rows · S / 2`` tokens, ``model`` token
+    shards of it for a device's ``E / 2`` experts; the port's card takes
+    its group's capacity over ``rows · S`` tokens.  The three expert
+    products over the difference in slots (forward only) are taken off
+    first.  At decode both take the local path, one group a data shard, so
+    no term."""
+    cfg = cfg_of("qwen3-moe-235b-a22b")
+    kind, seq, batch = SERVE[cell]
+    got = port_cell("qwen3-moe-235b-a22b", (2, 2), cell)["flops"]
+    if kind == "prefill":
+        T, tp = batch // 2 * seq, 2
+        extra = cfg.n_experts // tp * (moe.capacity(cfg, T) - tp * moe.capacity(cfg, T // tp))
+        got -= 3 * 2 * extra * cfg.d_model * cfg.moe_d_ff * cfg.n_layers
+    want = reference()[f"qwen3-moe-235b-a22b@2x2/{cell}"]["flops"]
+    assert abs(got - want) <= 0.05 * want, (got, want)
+
+
+DECODERS = ("chameleon-34b", "llama4-maverick-400b-a17b", "minicpm3-4b", "qwen1.5-4b",
+            "qwen3-32b", "qwen3-moe-235b-a22b", "starcoder2-15b")
+
+
+@pytest.mark.parametrize("arch", DECODERS)
+def test_serve_cells_gather_no_model_block(arch):
+    """Every decoder's reduced prefill and decode cells on (1, 4): the plan
+    gathers no parameter along ``model`` but those that run whole
+    (``transformer.tp_gathered``: an MoE config's router) and no decode
+    state, and the cell's collectives, run on planned groups, count what
+    the plan says (the serve step also refuses a state that is not its
+    ``decode_state_specs`` block)."""
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import shardings as sl
+    from repro_torch.launch.hlo_analysis import CollectivePlan
+    from repro_torch.models import get_model, transformer
+    from repro_torch.models.common import tree_leaves
+
+    cfg = dataclasses.replace(get_arch(arch).reduced, n_layers=get_arch(arch).reduced.moe_every)
+    model = get_model(cfg)
+    mesh = make_mesh((1, 4), ("data", "model"), device="meta")
+    card = dryrun.card_view(mesh)
+    whole = CollectivePlan()
+    specs = dict(tree_leaves(model.specs(mesh)))
+    for path in transformer.tp_gathered(cfg, model.specs(mesh)):
+        t = dict(tree_leaves(model.shapes()))[path]
+        whole.gather("param_gather", sl.block_shape(t.shape, card, specs[path]),
+                     t.element_size(), card, specs[path])
+    for cell in SERVE:
+        step, _, plan = dryrun.build_cell(arch, serve_shape(cell), mesh, cfg=cfg)
+        parts = plan.stats().by_computation
+        assert "state_gather" not in parts
+        assert parts.get("param_gather", 0) == whole.stats().by_computation.get("param_gather", 0)
+        assert parts["tp_sums"] > 0 and (cell == "prefill_32k") != ("serve_argmax" in parts)
+        collectives.reset_counts()
+        with StepTally():
+            step()
+        assert collectives.counts() == plan.stats().by_type, cell
